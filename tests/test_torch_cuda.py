@@ -1,0 +1,101 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+These tests need a CUDA device and nvcc; they carry the `cuda` marker and
+skip elsewhere. The file imports no JAX, so it runs on a machine that has
+only PyTorch; from the repo root:
+
+    python -m pytest --confcutdir=tests tests/test_torch_cuda.py
+
+(`--confcutdir=tests` keeps pytest from loading the root conftest.py, which
+sets up JAX.) The input makers are shared with tests/test_torch_kernels.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+from s2d_tpu_torch.ops import ms_deform_attn_cuda, nms
+from s2d_tpu_torch.ops.masked_attention_cuda import (
+    masked_attention_plain,
+    masked_cross_attention,
+)
+from s2d_tpu_torch.ops.ms_deform_attn import ms_deform_attn_plain
+
+# K1 levels: wide, tall and square, with out-of-range locations
+MSDA_SHAPES = [(4, 12), (10, 3), (6, 6)]
+
+
+def _msda_inputs(seed, b=2, lq=20, m=4, d=16, p=4, shapes=MSDA_SHAPES):
+    rng = np.random.RandomState(seed)
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(b, s, m, d).astype(np.float32)
+    # [-0.4, 1.4]: a share of the points falls outside the map
+    locs = (rng.rand(b, lq, m, len(shapes), p, 2) * 1.8 - 0.4).astype(np.float32)
+    locs[0, 0, 0, 0, 0] = (25.0, -40.0)  # far outside: the kernel's clamp
+    locs[1, 3, 2, 1, 3] = (1.0, 0.0)  # exactly on the border
+    logits = rng.randn(b, lq, m, len(shapes) * p).astype(np.float32)
+    weights = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return value, locs, weights.reshape(b, lq, m, len(shapes), p)
+
+
+def _flash_inputs(seed, bh=4, heads=2, q_len=12, k_len=300, dh=16):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(bh, q_len, dh).astype(np.float32)
+    k = rng.randn(bh, k_len, dh).astype(np.float32)
+    v = rng.randn(bh, k_len, dh).astype(np.float32)
+    # per-(batch, query, key) mask shared by the heads, as the decoder's
+    blocked = rng.rand(bh // heads, 1, q_len, k_len) > 0.6
+    blocked[..., k_len - 60:] = True  # pad-frame keys: blocked for every query
+    blocked[:, :, 3] = True  # one fully blocked row
+    return q, k, v, blocked
+
+
+def _nms_case(seed, n, grid):
+    rng = np.random.RandomState(seed)
+    if grid:  # IoUs on a coarse grid: ties with the threshold itself
+        iou = rng.randint(0, 5, (n, n)).astype(np.float32) / 4.0
+    else:
+        iou = rng.rand(n, n).astype(np.float32)
+    iou = np.maximum(iou, iou.T)
+    np.fill_diagonal(iou, 1.0)
+    labels = rng.randint(0, 3, n).astype(np.int32)
+    return iou, labels
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_msda_matches_twin(cuda):
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in _msda_inputs(4, d=32))
+    before = ms_deform_attn_cuda.LAUNCHES
+    got = ms_deform_attn_cuda.ms_deform_attn_cuda(value, MSDA_SHAPES, locs, weights)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_cuda.LAUNCHES == before + 1
+    ref = ms_deform_attn_plain(value, MSDA_SHAPES, locs, weights)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32])
+def test_cuda_flash_matches_twin(cuda, dh):
+    q, k, v, blocked = (torch.from_numpy(a).to(cuda) for a in _flash_inputs(5, dh=dh))
+    mask = blocked.expand(q.shape[0] // 2, 2, q.shape[1], k.shape[1])
+    got = masked_cross_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, masked_attention_plain(q, k, v, mask), rtol=1e-4, atol=1e-4)
+    assert torch.all(got[:, 3] == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_matches_twin(cuda):
+    for seed in range(5):
+        iou, labels = _nms_case(seed, 50, seed % 2 == 0)
+        iou_t, lab_t = torch.from_numpy(iou).to(cuda), torch.from_numpy(labels).to(cuda)
+        got = nms.greedy_mask_nms(iou_t, lab_t, 0.75)
+        assert torch.equal(got, nms.greedy_mask_nms_plain(iou_t, lab_t, 0.75))
