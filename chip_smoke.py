@@ -1,29 +1,63 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (s2d_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 1. prints the card (nvidia-smi name, power limit) and turns TF32 off for
    cuDNN convolutions and matmuls (full f32, as the JAX reference);
 2. builds the CUDA kernels from s2d_tpu_torch/csrc with nvcc (sm_90a);
-3. holds each kernel against its plain PyTorch twin on the card at the
-   main path's shapes (K1 MSDA and K3 flash attention at atol 1e-4 in f32:
-   summation order and expf differ; K4 NMS exactly) and times both;
-4. drives the main path: a full-width VideoPredictor (R50, 256 hidden, 100
-   queries, 6 encoder layers, 9 decoder rounds, seeded random weights)
+3. holds each kernel against its plain PyTorch version on the card at the
+   main paths' shapes and times both, beside the least time the card could
+   take (bound) and, where one PyTorch call computes the same function, that
+   call's time: K1 MSDA forward, K3 flash attention (atol 1e-4 in f32:
+   summation order and expf differ), K4 NMS (exactly), K2 MSDA backward at
+   the train step's shapes (d value at atol 1e-4: atomics sum in another
+   order; d locations and d weights at atol 1e-4 + 2e-5 max|d|: f32
+   rounding of the sampling coordinates; no sampling coordinate within 1e-3
+   pixels of a bilinear kink, where the location gradient is two-valued);
+4. drives the inference path: a full-width VideoPredictor (R50, 256 hidden,
+   100 queries, 6 encoder layers, 9 decoder rounds, seeded random weights)
    answers 3 requests, each a T=8 uint8 clip at 360x640 with 720x1280
-   output, and checks that each clip launched K1 6 times, K3 9 times and
-   K4 once and that its outputs are finite;
-5. runs the first clip again on the plain PyTorch path (plain MSDA, plain
-   attention, plain NMS) on the card, with the configured bf16 cast points
-   and in f32, and holds it to the kernel run: the keep-set to equality, the
-   logits and masks to rtol 1e-3 / atol 2e-3 where nothing quantizes the
-   difference between two correct f32 paths. The decoder's attention masks
-   are a hard threshold on mask logits, and the bf16 cast of mask_features
-   rounds: a 1e-6 difference flips either. So the bound is held with the
-   kernel path's attention-mask decisions replayed in the plain path, on
-   the logits in both dtypes and on the masks in f32; the unforced errors
-   and the number of decisions that differ are printed beside them.
+   output, and checks that each clip launched K1 6 times, K3 9 times and K4
+   once and that its outputs are finite;
+5. runs the first clip again on the plain PyTorch path on the card, with the
+   configured bf16 cast points and in f32, and holds it to the kernel run:
+   the keep-set to equality, the logits and masks to rtol 1e-3 / atol 2e-3
+   where nothing quantizes the difference between two correct f32 paths
+   (the decoder's attention masks are a hard threshold on mask logits, and
+   the bf16 cast of mask_features rounds: a 1e-6 difference flips either, so
+   the bound is held with the kernel path's attention-mask decisions
+   replayed in the plain path; the unforced errors are printed beside);
+6. drives the train path: the KD config
+   (configs/ytvis2021_kd_video_mask2former_R50_cls_agnostic.yaml) at full
+   width, seeded random weights, 3 steps of B=2 clips of T=3 frames at
+   368x640 (padded to 384x640) with 25 supervised target slots each (the
+   class head scaled so that about 60% of the teacher's queries become
+   distillation targets, and the encoder's sampling-offset weights drawn
+   small instead of 0 so that no sampling point sits on a bilinear kink,
+   see `new_train_state`), and
+   checks per step the K1/K2/K5 launches derived from the config, finite
+   losses, grad_finite = 1, a moved student, unchanged FrozenBN affines and
+   the teacher equal to the EMA of the student; prints step times, peak
+   device memory and the time of each stage;
+7. holds K5 (the batched auction) against its plain version on the card:
+   identical assignments on the train step's own 40 problems, on random
+   problems with invalid columns (25 supervised slots padded to 100, and
+   alone: fewer slots than queries, so the reverse rounds run) and on
+   quantized near-ties; times both, and the host scipy solver beside;
+8. runs one train step on the plain path (plain MSDA with autograd, plain
+   auction) from the same seeded state and the same random draws, and holds
+   its losses to the kernel step's at rtol 1e-3 / atol 2e-3 with the kernel
+   step's hard decisions replayed (the decoders' attention masks, the
+   distillation targets' thresholds, the assignments), with the configured
+   bf16 cast points and in f32; the unforced differences are printed beside.
+   In f32 with the decisions replayed it also holds the clipped gradients
+   of every encoder leaf (what K1 and K2 feed, recomputed under
+   checkpointing) to the plain step's at a relative 2-norm of 2e-3, and the
+   kernel step's update of every parameter to its float64 recomputation
+   from the step's gradients (clip, Adam, decay, multiplier, -lr).
+With --profile, one more train step runs under torch.profiler: device time
+per stage, the top kernels and the device's idle share.
 
 Any failure raises (exit code != 0). The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -31,10 +65,13 @@ device it stops before printing any result.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -45,6 +82,13 @@ REQUESTS = 3
 SEED = 0
 LEVELS = [(12, 20), (24, 40), (48, 80)]  # MSDA levels of a 384x640 padded input
 PER_CLIP = {"k1_msda": 6, "k3_flash": 9, "k4_nms": 1}
+KD_CONFIG = "configs/ytvis2021_kd_video_mask2former_R50_cls_agnostic.yaml"
+TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W, TRAIN_SLOTS, TRAIN_STEPS = 2, 3, 368, 640, 25, 3
+OFFSET_STD = 0.01  # the encoder's sampling-offset weights (see `new_train_state`)
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet): HBM3 bytes/s
+# and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def card_line() -> str:
@@ -68,6 +112,21 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time of a call: its bytes (each input read once, each output
+    written once) at the HBM rate, or its f32 operations at the f32 peak,
+    whichever is longer."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return dict(bound_ms=by_bytes, bound_by="bytes")
+    return dict(bound_ms=by_ops, bound_by="operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check_close(name, got, ref, rtol, atol):
@@ -94,38 +153,61 @@ def require_close(name, got, ref, rtol, atol) -> float:
     return max_err
 
 
-class MaskTape:
-    """Records the decoder's cross-attention masks in one run and replays them
-    in another. The masks are a hard threshold (sigmoid(logit) < 0.5): where
-    a logit lies within rounding of 0, two correct f32 paths decide that key
-    differently, and the decisions then drive the rest of the decoder apart.
-    Replaying one path's decisions in the other compares their arithmetic;
-    `differ` counts the decisions the replaying path would have made
-    otherwise."""
+def _differ(mine, theirs) -> int:
+    if isinstance(mine, (tuple, list)):
+        return sum(_differ(a, b) for a, b in zip(mine, theirs))
+    return int((mine != theirs).sum())
 
-    def __init__(self):
-        self.masks, self.differ = [], 0
 
-    def record(self, decoder):
-        own = decoder.attention_mask
+_MISSING = object()
+
+
+class Tape:
+    """Records what one function returns (a hard decision) in one run and
+    replays it in another. The decoder's cross-attention masks
+    (sigmoid(logit) < 0.5), the distillation targets (mask logit > 0, score >=
+    threshold) and the auction's assignments (on costs quantized to 4096
+    levels) are hard decisions: where a value lies within rounding of its
+    threshold, two correct f32 paths decide differently, and the decisions
+    then drive the rest apart. Replaying one path's decisions in the other
+    compares their arithmetic; `differ` counts the decisions the replaying
+    path would have made otherwise. `keep(args, out)` is what is recorded."""
+
+    def __init__(self, name: str, keep=lambda args, out: out):
+        self.name, self.keep = name, keep
+        self.values, self.differ = [], 0
+
+    def _patch(self, owner, hook):
+        self._undo = (owner, owner.__dict__.get(self.name, _MISSING))
+        setattr(owner, self.name, hook)
+
+    def record(self, owner) -> "Tape":
+        own = getattr(owner, self.name)
 
         def hook(*args, **kwargs):
-            self.masks.append(own(*args, **kwargs))
-            return self.masks[-1]
-        decoder.attention_mask = hook
+            out = own(*args, **kwargs)
+            self.values.append(self.keep(args, out))
+            return out
+        self._patch(owner, hook)
+        return self
 
-    def replay(self, decoder, force: bool):
-        own, it = decoder.attention_mask, iter(self.masks)
+    def replay(self, owner, force: bool) -> "Tape":
+        own, it = getattr(owner, self.name), iter(self.values)
+        self.differ = 0
 
         def hook(*args, **kwargs):
             mine, theirs = own(*args, **kwargs), next(it)
-            self.differ += int((mine != theirs).sum())
+            self.differ += _differ(mine, theirs)
             return theirs if force else mine
-        decoder.attention_mask = hook
+        self._patch(owner, hook)
+        return self
 
-    @staticmethod
-    def stop(decoder):
-        del decoder.attention_mask
+    def stop(self) -> None:
+        owner, old = self._undo
+        if old is _MISSING:
+            delattr(owner, self.name)
+        else:
+            setattr(owner, self.name, old)
 
 
 def compare_paths(cfg, predictor, clip, out_k, mods):
@@ -144,19 +226,17 @@ def compare_paths(cfg, predictor, clip, out_k, mods):
         plain = VideoPredictor(run_cfg, seed=None, device=predictor.device, kernels=False)
         kern.model.load_state_dict(predictor.model.state_dict())
         plain.model.load_state_dict(predictor.model.state_dict())
-        tape = MaskTape()
-        tape.record(kern.model.predictor)
+        tape = Tape("attention_mask").record(kern.model.predictor)
         ok, pk = kern.predict(clip, OUT_SIZE)
-        MaskTape.stop(kern.model.predictor)
+        tape.stop()
         if kern is predictor and not all(torch.equal(ok[k], out_k[k]) for k in ("pred_logits", "pred_masks")):
             failures.append("the kernel path is not deterministic")
         for force in (False, True):
-            tape.differ = 0
             tape.replay(plain.model.predictor, force)
             before = {k: m.LAUNCHES for k, m in mods.items()}
             op, pp = plain.predict(clip, OUT_SIZE)
             torch.cuda.synchronize()
-            MaskTape.stop(plain.model.predictor)
+            tape.stop()
             if {k: m.LAUNCHES for k, m in mods.items()} != before:
                 failures.append("the plain path launched a kernel")
             tag = f"{'bf16 cast points' if amp else 'f32'}, {'replayed' if force else 'own'} masks"
@@ -183,7 +263,34 @@ def compare_paths(cfg, predictor, clip, out_k, mods):
         raise AssertionError("; ".join(failures))
 
 
+def msda_inputs(frames, dev, gen, off_kinks=False):
+    """MSDA operands at the encoder's shapes (S = Lq = 5040, M=8, D=32, L=3,
+    P=4), with offsets that put a share of the points outside [0, 1].
+
+    off_kinks: move each sampling coordinate (x = loc * W - 0.5, as the
+    kernels compute it) that lies within 1e-3 of an integer by 2e-3 pixels.
+    Bilinear sampling has a kink there: its gradient in the location is
+    two-valued, and the kernel (floor of x) and `F.grid_sample` (floor of
+    its own rounding of x) may take different sides."""
+    s = sum(h * w for h, w in LEVELS)
+    value = torch.randn(frames, s, 8, 32, device=dev, generator=gen)
+    ref_pts = torch.rand(frames, s, 1, 3, 1, 2, device=dev, generator=gen)
+    norm = torch.tensor([[w, h] for h, w in LEVELS], device=dev, dtype=torch.float32)
+    offsets = 3.0 * torch.randn(frames, s, 8, 3, 4, 2, device=dev, generator=gen)
+    locs = (ref_pts + offsets / norm[None, None, None, :, None, :]).contiguous()
+    if off_kinks:
+        scale = norm[None, None, None, :, None, :]
+        coord = locs * scale - 0.5
+        near = (coord - coord.round()).abs() < 1e-3
+        locs = torch.where(near, locs + 2e-3 / scale, locs).contiguous()
+        print(f"  {int(near.sum())} sampling coordinates within 1e-3 of a kink moved by 2e-3 px")
+    weights = torch.softmax(torch.randn(frames, s, 8, 12, device=dev, generator=gen), -1)
+    return value, locs, weights.reshape(frames, s, 8, 3, 4).contiguous()
+
+
 def kernel_checks(dev, record):
+    import torch.nn.functional as F
+
     from s2d_tpu_torch.ops import masked_attention_cuda as k3
     from s2d_tpu_torch.ops import ms_deform_attn_cuda as k1
     from s2d_tpu_torch.ops import nms as k4
@@ -191,26 +298,23 @@ def kernel_checks(dev, record):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    # K1 at the encoder's shapes: B=T frames, S=Lq=5040, M=8, D=32, L=3, P=4
-    s = sum(h * w for h, w in LEVELS)
-    value = torch.randn(T, s, 8, 32, device=dev, generator=gen)
-    ref_pts = torch.rand(T, s, 1, 3, 1, 2, device=dev, generator=gen)
-    norm = torch.tensor([[w, h] for h, w in LEVELS], device=dev, dtype=torch.float32)
-    offsets = 3.0 * torch.randn(T, s, 8, 3, 4, 2, device=dev, generator=gen)
-    locs = (ref_pts + offsets / norm[None, None, None, :, None, :]).contiguous()
-    weights = torch.softmax(torch.randn(T, s, 8, 12, device=dev, generator=gen), -1)
-    weights = weights.reshape(T, s, 8, 3, 4).contiguous()
+    # K1 at the inference encoder's shapes: B=T frames
+    value, locs, weights = msda_inputs(T, dev, gen)
     print(f"K1 msda: value {tuple(value.shape)}, {((locs < 0) | (locs > 1)).any(-1).float().mean().item():.1%}"
           " of the points outside [0, 1]")
     got = k1.ms_deform_attn_cuda(value, LEVELS, locs, weights)
     torch.cuda.synchronize()
     err = require_close("K1 vs plain", got, ms_deform_attn_plain(value, LEVELS, locs, weights),
-                      0.0, 1e-4)
+                        0.0, 1e-4)
+    # per point and channel: 4 products and 3 sums (bilinear), 1 product and
+    # 1 sum (attention weight)
     record["k1_msda"] = dict(
         name="ms_deform_attn_fwd", route="cuda", source="s2d_tpu_torch/csrc/ms_deform_attn_fwd.cu",
         replaces="s2d_tpu/ops/ms_deform_attn_pallas.py:82", max_abs_err=err,
         ms=cuda_ms(lambda: k1.ms_deform_attn_cuda(value, LEVELS, locs, weights)),
         plain_ms=cuda_ms(lambda: ms_deform_attn_plain(value, LEVELS, locs, weights)),
+        **bound(nbytes(value, locs, weights, got), 9 * weights.numel() * value.shape[-1]),
+        library_ms=None,
     )
 
     # K3 at the decoder's shapes: BH=8, Q=100, Dh=32, K = T*h*w per level;
@@ -230,12 +334,22 @@ def kernel_checks(dev, record):
         if not torch.all(got[:, 5] == 0):
             raise AssertionError("K3: a fully blocked row must give 0")
         k3_errs.append(require_close(f"K3 vs plain (K={k_len})", got,
-                                   k3.masked_attention_plain(q, kk, v, mask), 0.0, 1e-4))
+                                     k3.masked_attention_plain(q, kk, v, mask), 0.0, 1e-4))
+    # the library call: scaled_dot_product_attention with a boolean mask of
+    # the keys each query may see; it has no answer for a fully blocked row,
+    # so row 5 sees what row 4 sees there
+    allowed = ~blocked
+    allowed[:, :, 5] = allowed[:, :, 4]
+    allowed = allowed.expand(1, 8, 100, k_len)
+    q4, k4_, v4 = q[None], kk[None], v[None]
     record["k3_flash"] = dict(
         name="masked_attention_fwd", route="cuda", source="s2d_tpu_torch/csrc/masked_attention.cu",
         replaces="s2d_tpu/ops/masked_attention_pallas.py:34", max_abs_err=max(k3_errs),
         ms=cuda_ms(lambda: k3.masked_cross_attention(q, kk, v, mask)),
         plain_ms=cuda_ms(lambda: k3.masked_attention_plain(q, kk, v, mask)),
+        # QK^T and PV: 2 x (2 Q K Dh) per head; the mask read once (1, 1, Q, K)
+        **bound(nbytes(q, kk, v, got, blocked), 4 * 8 * 100 * k_len * 32),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4_, v4, attn_mask=allowed)),
     )
 
     # K4 at N=50 on random IoU / labels: the keep mask must match exactly
@@ -259,16 +373,487 @@ def kernel_checks(dev, record):
         replaces="s2d_tpu/ops/nms.py:62", max_abs_err=0.0,
         ms=cuda_ms(lambda: k4.greedy_mask_nms(iou_t, lab_t, 0.75)),
         plain_ms=cuda_ms(lambda: k4.greedy_mask_nms_plain(iou_t, lab_t, 0.75), iters=5),
+        # one compare per (candidate, earlier candidate)
+        **bound(nbytes(iou_t, lab_t, got), 50 * 50), library_ms=None,
+    )
+
+    # K2 at the train step's encoder shapes: B=2 clips x T=3 frames
+    from s2d_tpu_torch.ops.ms_deform_attn_cuda import (
+        ms_deform_attn_bwd_cuda,
+        ms_deform_attn_bwd_plain,
+    )
+
+    value, locs, weights = msda_inputs(TRAIN_B * TRAIN_T, dev, gen, off_kinks=True)
+    grad_out = torch.randn(value.shape[0], value.shape[1], 256, device=dev, generator=gen)
+    print(f"K2 msda backward: value {tuple(value.shape)}, "
+          f"{((locs < 0) | (locs > 1)).any(-1).float().mean().item():.1%} of the points outside [0, 1]")
+    got = ms_deform_attn_bwd_cuda(value, LEVELS, locs, weights, grad_out)
+    torch.cuda.synchronize()
+    ref = ms_deform_attn_bwd_plain(value, LEVELS, locs, weights, grad_out)
+    ref64 = ms_deform_attn_bwd_plain(value.double(), LEVELS, locs.double(),
+                                     weights.double(), grad_out.double())
+    errs = []
+    for what, g, r, r64 in zip(("value", "locations", "weights"), got, ref, ref64):
+        # d value: atol 1e-4, atomics sum in another order. d locations and
+        # d weights sum over the channels with corner weights that each
+        # version derives from a sampling coordinate rounded in f32 (up to
+        # 80 px, 8e-6 apart): held at atol 1e-4 + 2e-5 max|d|, the scale of
+        # the plain version's own distance to float64 printed beside
+        atol = 1e-4 if what == "value" else 1e-4 + 2e-5 * r.abs().max().item()
+        errs.append(require_close(f"K2 d {what} vs plain", g, r, 0.0, atol))
+        print(f"    max |d {what}| {r.abs().max().item():.3e}; against the plain version in "
+              f"float64: kernel {(g.double() - r64).abs().max().item():.3e}, plain f32 "
+              f"{(r.double() - r64).abs().max().item():.3e}")
+    del ref64
+
+    def fwd_bwd(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (value, locs, weights)]
+        fn(leaves[0], LEVELS, leaves[1], leaves[2]).backward(grad_out)
+
+    both = (cuda_ms(lambda: fwd_bwd(k1.ms_deform_attn_cuda)),
+            cuda_ms(lambda: fwd_bwd(ms_deform_attn_plain)))
+    print(f"  K1 + K2 (forward + backward through autograd): {both[0]:.4f} ms, "
+          f"plain autograd {both[1]:.4f} ms")
+    # per point and channel: the bilinear sample again (7), its weight
+    # gradient (2), the x and y corner differences (2 x 5), and 4 weighted
+    # corner updates (8)
+    record["k2_msda_bwd"] = dict(
+        name="ms_deform_attn_bwd", route="cuda", source="s2d_tpu_torch/csrc/ms_deform_attn_bwd.cu",
+        replaces="s2d_tpu/ops/ms_deform_attn_pallas.py:113", max_abs_err=max(errs),
+        ms=cuda_ms(lambda: ms_deform_attn_bwd_cuda(value, LEVELS, locs, weights, grad_out)),
+        plain_ms=cuda_ms(lambda: ms_deform_attn_bwd_plain(value, LEVELS, locs, weights, grad_out)),
+        **bound(nbytes(value, locs, weights, grad_out, *got), 27 * weights.numel() * value.shape[-1]),
+        library_ms=None,
     )
     for key, r in record.items():
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
 
 
-def main() -> int:
+def auction_check(dev, record, main_problem):
+    """K5 against the plain auction: identical assignments. The main path's
+    own 40 problems are timed."""
+    from s2d_tpu_torch.losses.matcher import hungarian_assign_scipy
+    from s2d_tpu_torch.ops import auction, auction_cuda
+
+    rng = np.random.RandomState(SEED)
+    half, q, n = 20, 100, 100
+    sup_cost = np.zeros((half, q, n), np.float32)
+    sup_cost[:, :, :TRAIN_SLOTS] = rng.rand(half, q, TRAIN_SLOTS) * 10
+    sup_valid = np.zeros((half, n), bool)
+    sup_valid[:, :TRAIN_SLOTS] = rng.rand(half, TRAIN_SLOTS) > 0.2
+    kd_cost = (rng.rand(half, q, n) * 10).astype(np.float32)
+    kd_valid = rng.rand(half, n) > 0.25
+    ties = (rng.randint(0, 5, (2 * half, q, n)) / 5 + rng.rand(2 * half, q, n) * 1e-5).astype(np.float32)
+    cases = {
+        "the train step's own problems": main_problem,
+        "25 supervised slots padded to 100 + 100 distillation slots, invalid columns": (
+            torch.from_numpy(np.concatenate([sup_cost, kd_cost])).to(dev),
+            torch.from_numpy(np.concatenate([sup_valid, kd_valid])).to(dev)),
+        "quantized near-ties": (torch.from_numpy(ties).to(dev),
+                                torch.ones(2 * half, n, dtype=torch.bool, device=dev)),
+        # fewer slots than queries: the reverse rounds run
+        "25 supervised slots alone": (
+            torch.from_numpy(np.ascontiguousarray(sup_cost[:, :, :TRAIN_SLOTS])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(sup_valid[:, :TRAIN_SLOTS])).to(dev)),
+    }
+    main = None
+    for name, (cost, valid) in cases.items():
+        ben = auction.build_benefits(cost, valid)
+        eps = auction.eps_schedule(cost.shape[2], False)
+        got = auction_cuda.auction_asym_cuda(ben, eps)
+        torch.cuda.synchronize()
+        rounds = {}
+        ref = auction.auction_asym_plain(ben, eps, rounds=rounds)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K5 assignments differ from plain ({name}): "
+                                 f"{int((got != ref).sum())} of {got.numel()}")
+        print(f"  K5 vs plain ({name}): {ben.shape[0]} problems of {ben.shape[1]} x "
+              f"{ben.shape[2]}, assignments identical; active (problem, round) pairs {rounds}")
+        if main is None:
+            main = (cost, ben, eps, got, rounds)
+    cost, ben, eps, got, rounds = main
+    hungarian_assign_scipy(cost[:1])  # imports scipy
+    start = time.perf_counter()
+    hungarian_assign_scipy(cost)
+    scipy_ms = (time.perf_counter() - start) * 1e3
+    b, n, q = ben.shape
+    # the work the assignment needs, not the kernel's dense scans: a bid of
+    # an unassigned person reads its Q net values (a subtract, and compares
+    # for w1/i1 and w2) and is settled at its object (1); an unowned priced
+    # object in a reverse round reads the N person values (a subtract, and
+    # compares for beta/i* and gamma) and is settled (1), after a profit per
+    # person (1) in each active (problem, reverse round); a phase's partial
+    # reset takes each person's best net value (2 per benefit)
+    ops = ((3 * q + 1) * rounds["bidders"] + (3 * n + 1) * rounds["sellers"]
+           + n * rounds["reverse"] + 2 * b * len(eps) * n * q)
+    eps_t = torch.tensor(eps, dtype=torch.float32, device=dev)
+    record["k5_auction"] = dict(
+        name="batched_auction", route="cuda", source="s2d_tpu_torch/csrc/auction.cu",
+        replaces="s2d_tpu/ops/auction_pallas.py:48", max_abs_err=0.0,
+        ms=cuda_ms(lambda: auction_cuda.auction_asym_cuda(ben, eps)),
+        plain_ms=cuda_ms(lambda: auction.auction_asym_plain(ben, eps), iters=3),
+        **bound(nbytes(ben, eps_t, got), ops), library_ms=None,
+    )
+    r = record["k5_auction"]
+    print(f"  K5: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']}; {ops:.4g} operations, {nbytes(ben, eps_t, got)} bytes); host scipy LSA "
+          f"of the same {b} problems {scipy_ms:.2f} ms (not asserted)")
+
+
+def train_batch(cfg, dev):
+    """B=2 clips of T=3 uint8 frames at 368x640, normalized and zero-padded
+    to 384x640, with 25 target slots per clip: an ellipse per slot drifting
+    over the frames, about a fifth of the slots invalid, and one valid slot
+    empty in one frame (temporal DropLoss)."""
+    from s2d_tpu_torch.models.meta_arch import preprocess_clip
+
+    rng = np.random.RandomState(SEED)
+    frames = rng.randint(0, 256, (TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W, 3), dtype=np.uint8)
+    images = torch.cat([
+        preprocess_clip(f, cfg.model.pixel_mean, cfg.model.pixel_std,
+                        cfg.model.mask_former.size_divisibility, dev)[0]
+        for f in frames])
+    hp, wp = images.shape[2:4]
+    per_slot = (TRAIN_B, TRAIN_SLOTS, 1, 1, 1)
+    drift = rng.uniform(-12, 12, (TRAIN_B, TRAIN_SLOTS, TRAIN_T, 1, 1)).cumsum(2)
+    cy = rng.uniform(0.15, 0.85, per_slot) * TRAIN_H + drift
+    cx = rng.uniform(0.15, 0.85, per_slot) * TRAIN_W + drift[:, ::-1]
+    ry = rng.uniform(0.04, 0.3, per_slot) * TRAIN_H
+    rx = rng.uniform(0.04, 0.3, per_slot) * TRAIN_W
+    dev_f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    yy = torch.arange(hp, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(wp, device=dev, dtype=torch.float32)[None, :]
+    masks = ((yy - dev_f(cy)) / dev_f(ry)) ** 2 + ((xx - dev_f(cx)) / dev_f(rx)) ** 2 < 1.0
+    masks[..., TRAIN_H:, :] = False
+    valid = torch.from_numpy(rng.rand(TRAIN_B, TRAIN_SLOTS) > 0.2).to(dev)
+    valid[0, 0] = True
+    masks &= valid[:, :, None, None, None]
+    masks[0, 0, 1] = False
+    return images, masks, valid
+
+
+class StageTimer:
+    """Stands in for the trainer's `record_function`: the same span, with the
+    card synchronized at both ends, so each stage's host time holds the
+    device work of that stage."""
+
+    def __init__(self):
+        self.ms = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with torch.profiler.record_function(name):
+            yield
+        torch.cuda.synchronize()
+        self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - start) * 1e3
+
+
+def new_train_state(cfg, dev, kernels=True, class_scale=None):
+    """The seeded train state, with two changes to the student and the
+    teacher alike:
+      * the class head scaled by `class_scale`. Seeded random weights put
+        every query's foreground score near 0.5, below
+        SCORE_THRESHOLD_DISTILLATION (0.75), so the distillation criterion
+        would see no target; the scale (chosen by `class_head_scale`) lets
+        a share of the teacher's queries pass;
+      * the encoder's sampling-offset weights drawn N(0, OFFSET_STD^2). The
+        initialization (as JAX's) zeroes them and sets integer pixel
+        offsets as biases, which puts every sampling point at its own level
+        on an integer pixel coordinate: a kink of bilinear sampling, where
+        the location gradient is two-valued and K2 and `F.grid_sample` pick
+        a side by their own f32 rounding. The draw (about 0.16 px of
+        offset) moves the points off the kinks, as training does."""
+    from s2d_tpu_torch.models.pixel_decoder import MSDeformAttnModule
+    from s2d_tpu_torch.train import trainer
+
+    state = trainer.create_train_state(cfg, seed=SEED, device=dev, kernels=kernels)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for mod in state.student.modules():
+            if isinstance(mod, MSDeformAttnModule):
+                w = mod.sampling_offsets.weight
+                w.copy_(OFFSET_STD * torch.randn(w.shape, generator=gen, device=w.device))
+        if class_scale is not None:
+            state.student.predictor.class_embed.weight.mul_(class_scale)
+        state.teacher.load_state_dict(state.student.state_dict())
+    return state
+
+
+def class_head_scale(cfg, state, images) -> float:
+    """The class-head scale at which the teacher's 40% quantile of
+    foreground-minus-no-object logit margins on `images` meets the
+    distillation threshold: about 60% of the queries become targets."""
+    t = cfg.model.mask_former.score_threshold_distillation
+    with torch.no_grad():
+        logits = state.teacher(images)["pred_logits"].float()
+    margin = (logits[..., 0] - logits[..., -1]).flatten()
+    return float(np.log(t / (1.0 - t)) / margin.quantile(0.4).item())
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one KD step on the card: K1 in the teacher and the
+    student forward, and again when the backward recomputes the encoder
+    layers; K2 in the student's backward; one K5 auction."""
+    enc = cfg.model.sem_seg_head.transformer_enc_layers
+    return {"k1_msda": enc * (3 if cfg.solver.grad_checkpoint else 2),
+            "k2_msda_bwd": enc, "k5_auction": 1}
+
+
+def train_counters():
+    from s2d_tpu_torch.ops import auction_cuda, ms_deform_attn_cuda
+
+    return {"k1_msda": (ms_deform_attn_cuda, "LAUNCHES"),
+            "k2_msda_bwd": (ms_deform_attn_cuda, "BWD_LAUNCHES"),
+            "k5_auction": (auction_cuda, "LAUNCHES")}
+
+
+def read_counts(counters):
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def train_path(dev, cfg, batch):
+    """3 full-width KD steps on the kernels, with the per-step checks.
+    Returns (launches, state, step, the first step's auction problems, the
+    class-head scale)."""
+    from s2d_tpu_torch.losses import criterion
+    from s2d_tpu_torch.train import trainer
+
+    start = time.perf_counter()
+    state = new_train_state(cfg, dev)
+    class_scale = class_head_scale(cfg, state, batch[0])
+    state = new_train_state(cfg, dev, class_scale=class_scale)
+    step_fn = trainer.make_train_step(cfg)
+    expected = expected_launches(cfg)
+    print(f"train state: {time.perf_counter() - start:.1f} s; {len(state.optimizer.params)} parameter "
+          f"tensors; class head scaled by {class_scale:.3f}; expected launches per step {expected}")
+    opt = state.optimizer
+    frozen = {i for i, lab in enumerate(opt.labels) if lab == "frozen"}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    problems = Tape("hungarian_assign", keep=lambda args, out: args[:2]).record(criterion)
+    kd_valid = Tape("prepare_distillation_targets",
+                    keep=lambda args, out: int(out[1].sum())).record(trainer)
+    counters = train_counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, timer = [], StageTimer()
+    try:
+        for i in range(TRAIN_STEPS):
+            before = read_counts(counters)
+            student0 = [p.detach().clone() for p in opt.params]
+            teacher0 = [p.detach().clone() for p in state.teacher.parameters()]
+            if i == TRAIN_STEPS - 1:
+                trainer.record_function = timer
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, metrics = step_fn(state, *batch, generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            grew = {k: v - before[k] for k, v in read_counts(counters).items()}
+            if grew != expected:
+                raise AssertionError(f"train step {i}: launches {grew}, expected {expected}")
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+            if bad or float(metrics["grad_finite"]) != 1.0:
+                raise AssertionError(f"train step {i}: non-finite {bad}, grad_finite "
+                                     f"{float(metrics['grad_finite'])}")
+            moved = sum(not torch.equal(a, p) for j, (a, p) in enumerate(zip(student0, opt.params))
+                        if j not in frozen)
+            if moved == 0:
+                raise AssertionError(f"train step {i}: the student did not move")
+            if any(not torch.equal(student0[j], opt.params[j]) for j in frozen):
+                raise AssertionError(f"train step {i}: a FrozenBN affine moved")
+            m = float(step_fn.ema_fn(state.step - 1))
+            for t0, s, t in zip(teacher0, state.student.parameters(), state.teacher.parameters()):
+                if not torch.equal(t, m * t0 + (1.0 - m) * s):
+                    raise AssertionError(f"train step {i}: the teacher is not the EMA of the student")
+            losses = ", ".join(f"{k} {float(v):.4f}" for k, v in metrics.items() if k != "grad_finite")
+            print(f"train step {i}: {times[-1] * 1e3:.1f} ms, launches {grew}, moved {moved} of "
+                  f"{len(opt.params) - len(frozen)} trainable tensors, FrozenBN held, teacher = "
+                  f"EMA (m={m}), {kd_valid.values[-1]} distillation targets; {losses}")
+            del student0, teacher0
+    finally:
+        trainer.record_function = torch.profiler.record_function
+        problems.stop()
+        kd_valid.stop()
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = times[1:]
+    print(f"train path: {1e3 * sum(steady) / len(steady):.1f} ms per step after the first "
+          f"(steps {', '.join(f'{t * 1e3:.1f}' for t in steady)} ms; the last with a synchronize "
+          f"at each stage), first step {times[0] * 1e3:.1f} ms, peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    print("train step stages (last step, host clock, synchronized): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in timer.ms.items()))
+    return launches, state, step_fn, problems.values[0], class_scale
+
+
+ENCODER_PREFIX = "pixel_decoder.encoder_layer"
+# per encoder leaf, |g_kernel - g_plain|_2 / |g_plain|_2, in f32 with the
+# decisions replayed: 4x the worst reading on an H100 (5.1e-4; the biases
+# sum over every query with cancellation, and a point within f32 rounding
+# of a bilinear kink takes another side in K2 than in `F.grid_sample`).
+# With every point on a kink (sampling-offset weights left at 0) the
+# reading was 0.30.
+GRAD_RTOL = 2e-3
+
+
+def update_error(opt, p0, raw_grads) -> float:
+    """The worst ratio, over every parameter element, of |p - ref| to its
+    bound, where ref is the first update recomputed in float64 from the
+    step's gradients: clip by global norm, Adam from zero moments (the
+    bias-corrected moments give u = g / (|g| + eps)), decoupled decay, the
+    group multiplier, -lr(0). Bound: 2 f32 ulps of |ref| + 1e-5 |update|."""
+    from s2d_tpu_torch.train.optim import EPS
+
+    g64 = [g.double() for g in raw_grads]
+    norm = torch.stack([(g * g).sum() for g in g64]).sum().sqrt()
+    scale = 1.0 if opt.clip is None or bool(norm < opt.clip) else opt.clip / norm
+    lr = float(opt.schedule(0))
+    worst = 0.0
+    for i, (p, start, g) in enumerate(zip(opt.params, p0, g64)):
+        g = g * scale
+        u = g / (g.abs() + EPS)
+        if opt.decay[i]:
+            u = u + opt.weight_decay * start.double()
+        ref = start.double() - lr * opt.multipliers[i] * u
+        bound = 2.4e-7 * ref.abs() + 1e-5 * (ref - start.double()).abs()
+        err = (p.detach().double() - ref).abs()
+        if bool((err > bound).any()):
+            worst = max(worst, (err / bound.clamp(min=1e-300)).max().item())
+    return worst
+
+
+def compare_train_step(dev, batch, class_scale):
+    """One step from the seeded state on the plain path (plain MSDA with
+    autograd, plain auction) against the kernel path, with the configured
+    bf16 cast points and in f32. With the kernel step's hard decisions
+    replayed, the losses are held at rtol 1e-3 / atol 2e-3, and in f32 the
+    clipped gradients of every encoder leaf (K1 forward, K2 backward, the
+    recompute under checkpointing) at GRAD_RTOL in the 2-norm. The kernel
+    step's update of every parameter is held to its float64 recomputation
+    (`update_error`)."""
+    from s2d_tpu_torch.config import load_config_tree
+    from s2d_tpu_torch.losses import criterion
+    from s2d_tpu_torch.train import trainer
+
+    counters = train_counters()
+    failures = []
+    for amp in (True, False):
+        cfg = load_config_tree(KD_CONFIG, () if amp else ("SOLVER.AMP.ENABLED", "False"))
+        tapes = [Tape("attention_mask"), Tape("attention_mask"),
+                 Tape("prepare_distillation_targets"), Tape("hungarian_assign")]
+        what = ["teacher attention-mask", "student attention-mask", "distillation-target",
+                "assignment"]
+
+        def owners(st):
+            return [st.teacher.predictor, st.student.predictor, trainer, criterion]
+
+        def run(kernels, tape_fn):
+            state = new_train_state(cfg, dev, kernels, class_scale)
+            opt = state.optimizer
+            for tape, owner in zip(tapes, owners(state)):
+                tape_fn(tape, owner)
+            grads = Tape("step", keep=lambda args, out: list(args[0])).record(opt)
+            p0 = [p.detach().clone() for p in opt.params] if kernels else None
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            try:
+                _, metrics = trainer.make_train_step(cfg, kernels=kernels)(state, *batch, generator=gen)
+                torch.cuda.synchronize()
+            finally:
+                for tape in tapes + [grads]:
+                    tape.stop()
+            (raw,) = grads.values
+            clipped = opt.clip_gradients(raw)
+            enc = {n: g for n, g in zip(opt.names, clipped) if n.startswith(ENCODER_PREFIX)}
+            if kernels:
+                ratio = update_error(opt, p0, raw)
+                print(f"kernel train step ({'bf16 cast points' if amp else 'f32'}): update of "
+                      f"{len(opt.params)} parameter tensors vs float64, worst err/bound {ratio:.3f}")
+                if ratio > 1.0:
+                    failures.append(f"the kernel step's update misses its float64 recomputation "
+                                    f"({ratio:.3f})")
+            return metrics, gen.get_state(), enc
+
+        mk, gen_k, gk = run(True, lambda tape, owner: tape.record(owner))
+        for force in (False, True):
+            before = read_counts(counters)
+            mp, gen_p, gp = run(False, lambda tape, owner: tape.replay(owner, force))
+            if read_counts(counters) != before:
+                failures.append("the plain train step launched a kernel")
+            if not torch.equal(gen_k, gen_p):
+                failures.append("the two train steps drew different random numbers")
+            tag = f"{'bf16 cast points' if amp else 'f32'}, {'replayed' if force else 'own'} decisions"
+            print(f"plain vs kernel train step, {tag}: decisions that differ: "
+                  + ", ".join(f"{w} {t.differ}" for w, t in zip(what, tapes)))
+            for key in mk:
+                if key == "grad_finite":
+                    continue
+                _, ratio = check_close(key, mp[key], mk[key], 1e-3, 2e-3)
+                if force and ratio > 1.0:
+                    failures.append(f"{tag}: {key} beyond rtol 1e-3 / atol 2e-3")
+            rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm().clamp(min=1e-30)).item() for n in gp}
+            worst = max(rel, key=rel.get)
+            abs_err = max((gk[n] - gp[n]).abs().max().item() for n in gp)
+            g_max = max(gp[n].abs().max().item() for n in gp)
+            print(f"  clipped gradients of {len(gp)} encoder leaves: worst |dg|/|g| {rel[worst]:.3e} "
+                  f"({worst}), max abs err {abs_err:.3e} of max |g| {g_max:.3e} (bound {GRAD_RTOL} "
+                  f"with replayed decisions in f32)")
+            if force and not amp and rel[worst] > GRAD_RTOL:
+                failures.append(f"{tag}: encoder gradient {worst} beyond {GRAD_RTOL}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def profile_train_step(state, step_fn, batch):
+    """One more train step under torch.profiler: device time per stage (the
+    trainer's spans), the top kernels, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=state.optimizer.params[0].device).manual_seed(SEED + 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(state, *batch, generator=gen)
+        torch.cuda.synchronize()
+    path = Path("build") / "train_step_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        raise AssertionError("the profiler recorded no device work")
+    busy, end = 0.0, device[0][0]
+    for s, e in device:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    span = end - device[0][0]
+    stages = {}
+    for e in events:
+        if e.get("cat") == "gpu_user_annotation":
+            stages[e["name"]] = stages.get(e["name"], 0.0) + e["dur"] / 1e3
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"][:80]] = kernels.get(e["name"][:80], 0.0) + e["dur"] / 1e3
+    print(f"profiled train step: device span {span / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms, "
+          f"idle share {1 - busy / span:.3f}")
+    print("  device ms per span: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.2f} ms  {name}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile one train step (device time per stage, idle share)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     from s2d_tpu_torch import _build
-    from s2d_tpu_torch.config import VideoConfig
+    from s2d_tpu_torch.config import VideoConfig, load_config_tree
     from s2d_tpu_torch.demo_video import VideoPredictor, set_full_f32
     from s2d_tpu_torch.evaluation.inference import finalize_predictions
     from s2d_tpu_torch.ops import masked_attention_cuda, ms_deform_attn_cuda, nms
@@ -287,11 +872,11 @@ def main() -> int:
     build_s = time.perf_counter() - start
     print(f"build: {build_s:.2f} s ({_build._library_path().name})")
 
-    # 3. kernels against their twins
+    # 3. kernels against their plain versions
     record = {}
     kernel_checks(dev, record)
 
-    # 4. the main path: 3 requests through the full-width predictor
+    # 4. the inference path: 3 requests through the full-width predictor
     cfg = VideoConfig()
     predictor = VideoPredictor(cfg, seed=SEED, device=dev)
     assert predictor.kernels, "the predictor must run the CUDA kernels on the card"
@@ -324,13 +909,40 @@ def main() -> int:
     launches = {k: m.LAUNCHES for k, m in mods.items()}
     steady = latencies[1:]
     clip_ms = 1e3 * sum(steady) / len(steady)
-    print(f"main path: {clip_ms:.1f} ms per clip after the first "
+    print(f"inference path: {clip_ms:.1f} ms per clip after the first "
           f"({T * 1e3 / clip_ms:.2f} frames/s), first clip {latencies[0] * 1e3:.1f} ms")
 
     # 5. the same clip on the plain path, on the card
     compare_paths(cfg, predictor, clips[0], first_out, mods)
+    del predictor, first_out
 
-    kernels = [dict(record[k], launches=launches[k]) for k in ("k1_msda", "k3_flash", "k4_nms")]
+    # 6. the train path: 3 full-width KD steps
+    train_cfg = load_config_tree(KD_CONFIG)
+    batch = train_batch(train_cfg, dev)
+    print(f"train batch: images {tuple(batch[0].shape)}, targets {tuple(batch[1].shape)}, "
+          f"{int(batch[2].sum())} valid slots")
+    train_launches, state, step_fn, problems, class_scale = train_path(dev, train_cfg, batch)
+
+    # 7. K5 against its plain version, on the train step's problems and more
+    auction_check(dev, record, problems)
+    if args.profile:
+        profile_train_step(state, step_fn, batch)
+    del state, step_fn
+
+    # 8. one train step on the plain path, from the same state
+    compare_train_step(dev, batch, class_scale)
+
+    by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"]},
+               "k3_flash": {"inference": launches["k3_flash"]},
+               "k4_nms": {"inference": launches["k4_nms"]},
+               "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"]},
+               "k5_auction": {"train": train_launches["k5_auction"]}}
+    for key, paths in by_path.items():
+        if not all(paths.values()):
+            raise AssertionError(f"{key} was not launched on its path: {paths}")
+    kernels = [dict(record[k], launches=sum(by_path[k].values()), launches_by_path=by_path[k])
+               for k in ("k1_msda", "k2_msda_bwd", "k3_flash", "k4_nms", "k5_auction")]
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

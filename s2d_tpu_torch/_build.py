@@ -37,6 +37,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     # value, level_info, locations, weights, out, B, S, M, D, Lq, L, P, stream
     "s2d_msda_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # value, level_info, locations, weights, grad_out, grad_value, grad_loc,
+    # grad_weights, B, S, M, D, Lq, L, P, stream
+    "s2d_msda_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # benefit, eps list, out, problems, N, Q, phases, max_iters, stream
+    "s2d_auction": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, mask, workspace, out, BH, Q, K, Dh, H, mask strides (b, h, q, k),
     # scale, stream
     "s2d_masked_attention_fwd": (

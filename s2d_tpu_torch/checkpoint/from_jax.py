@@ -1,4 +1,4 @@
-"""Load the JAX package's flax parameters into the port.
+"""Load the JAX package's flax parameters into the port, and back.
 
 The port's parameter names follow the flax tree, so each flax leaf maps to
 exactly one port tensor:
@@ -12,6 +12,7 @@ exactly one port tensor:
 Input is the flax `variables` flattened to numpy with "/" separators, e.g.
 `{"/".join(k): np.asarray(v) for k, v in flax.traverse_util.flatten_dict(
 variables).items()}` (a leading "params/" is accepted), or an .npz of it.
+`params_to_jax` is the inverse: the port's tensors under their flax names.
 """
 from __future__ import annotations
 
@@ -75,3 +76,24 @@ def load_params_from_jax(model: torch.nn.Module, flat: Mapping[str, np.ndarray])
 def load_npz(path: str) -> Dict[str, np.ndarray]:
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def _jax_leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        if value.ndim == 4:  # OIHW -> HWIO
+            return "/".join(parts[:-1] + ["kernel"]), value.transpose(2, 3, 1, 0)
+        if value.ndim == 2:  # (out, in) -> (in, out)
+            return "/".join(parts[:-1] + ["kernel"]), value.T
+        return "/".join(parts[:-1] + ["scale"]), value
+    return "/".join(parts), value
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's state_dict -> flattened flax params ("params/..." keys,
+    float32 numpy), the inverse of `params_from_jax`."""
+    flat = {}
+    for name, tensor in state.items():
+        path, value = _jax_leaf(name, tensor.detach().float().cpu().numpy())
+        flat["params/" + path] = np.ascontiguousarray(value)
+    return flat

@@ -11,6 +11,12 @@ outputs, and inside the decoder the queries and the position embedding --
 and flax promotes each bf16 activation meeting an f32 parameter to f32. So
 the JAX "bf16" eval path computes in f32 between those points; the port
 rounds at exactly those points (`round_to`) and computes in f32.
+
+Train mode (`model.train()`, `build_model(..., train=True)`) is JAX's
+`deterministic=False`: the pixel decoder's encoder dropout is on, drawn from
+the generator given to `forward`. `grad_checkpoint` recomputes each encoder
+layer in the backward pass. The flash cross-attention (K3) stays an eval
+path, as in JAX.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ class VideoMaskFormer(nn.Module):
                  enc_dim_feedforward: int = 1024, enc_n_points: int = 4,
                  backbone_depth: int = 50, msda_impl: str = "plain",
                  flash_cross_attention: bool = False,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 enc_dropout: float = 0.0, grad_checkpoint: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.backbone = ResNet(depth=backbone_depth)
@@ -44,7 +51,7 @@ class VideoMaskFormer(nn.Module):
             RESNET_FEATURE_CHANNELS, conv_dim=hidden_dim, mask_dim=mask_dim,
             enc_layers=transformer_enc_layers, nheads=nheads,
             dim_feedforward=enc_dim_feedforward, n_points=enc_n_points,
-            msda_impl=msda_impl,
+            msda_impl=msda_impl, dropout=enc_dropout, grad_checkpoint=grad_checkpoint,
         )
         # dec_layers is the config value; the decoder runs dec_layers - 1 rounds
         self.predictor = VideoMaskedTransformerDecoder(
@@ -54,15 +61,17 @@ class VideoMaskFormer(nn.Module):
             compute_dtype=compute_dtype,
         )
 
-    def forward(self, images: torch.Tensor,
-                frame_valid: torch.Tensor | None = None) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, frame_valid: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
+        """`generator` draws the encoder dropout in train mode."""
         b, t, h, w, _ = images.shape
         dt = self.compute_dtype
         frames = round_to(images.reshape(b * t, h, w, 3).float(), dt)
         with record_function("backbone"):
             features = self.backbone(frames.permute(0, 3, 1, 2).contiguous())
         with record_function("pixel_decoder"):
-            mask_features, ms_feats = self.pixel_decoder(features)
+            mask_features, ms_feats = self.pixel_decoder(
+                features, deterministic=not self.training, generator=generator)
         # the f32 pixel-decoder island ends here
         ms_video = [round_to(f, dt).reshape(b, t, *f.shape[1:]) for f in ms_feats]
         mask_features = round_to(mask_features, dt)
@@ -115,10 +124,14 @@ def build_model(
     flash_cross_attention: bool = False,
     seed: int | None = 0,
     device=None,
+    train: bool = False,
+    enc_dropout: float = 0.0,
+    grad_checkpoint: bool = False,
 ) -> VideoMaskFormer:
     """The configured model on `device`, initialised from `seed` (None: leave
-    the parameters for a state_dict load). msda_impl: "plain" | "cuda".
-    With cfg.amp the activations round to bf16 at the JAX cast points."""
+    the parameters for a state_dict load), in train or eval mode.
+    msda_impl: "plain" | "cuda". With cfg.amp the activations round to bf16
+    at the JAX cast points."""
     model = VideoMaskFormer(
         num_classes=cfg.num_classes, hidden_dim=cfg.hidden_dim, mask_dim=cfg.mask_dim,
         num_queries=cfg.num_queries, nheads=cfg.nheads,
@@ -127,10 +140,11 @@ def build_model(
         enc_n_points=cfg.enc_n_points, backbone_depth=cfg.backbone_depth,
         msda_impl=msda_impl, flash_cross_attention=flash_cross_attention,
         compute_dtype=torch.bfloat16 if cfg.amp else torch.float32,
+        enc_dropout=enc_dropout, grad_checkpoint=grad_checkpoint,
     )
     if seed is not None:
         init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.eval().to(device)
+    return model.train(train).to(device)
 
 
 @functools.lru_cache(maxsize=8)

@@ -4,8 +4,15 @@
 res5), `enc_layers` deformable encoder layers (the MSDA core: the K1 CUDA
 kernel or its plain twin, by `msda_impl`), then the FPN fuse with res2 and
 the 1x1 `mask_features` projection. The whole module runs in float32 (the
-reference's autocast-off island). Eval only: dropout is the identity here.
-Parameter names follow the flax tree.
+reference's autocast-off island). Parameter names follow the flax tree.
+
+Training (`deterministic=False`): each encoder layer applies dropout at
+`dropout` after its attention, its FFN hidden layer and its FFN output, as
+flax's `nn.Dropout` (keep with probability 1 - rate, scale by 1 / (1 -
+rate)). The keep masks are drawn from an explicit generator before the
+layer runs, so that with `grad_checkpoint` (each encoder layer recomputed in
+the backward pass, `torch.utils.checkpoint`) the recomputation replays the
+same masks.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.ms_deform_attn import ms_deform_attn
 from ..ops.resize import interpolate_bilinear
@@ -96,11 +104,27 @@ class MSDeformAttnEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, src, pos, reference_points, spatial_shapes):
+    def draw_dropout(self, src: torch.Tensor, rate: float,
+                     generator: torch.Generator | None) -> Tuple[torch.Tensor, ...]:
+        """Keep masks of the three dropouts, with probability 1 - rate."""
+        shapes = (src.shape, (*src.shape[:-1], self.linear1.out_features), src.shape)
+        return tuple(
+            torch.rand(shape, generator=generator, device=src.device) < 1.0 - rate
+            for shape in shapes
+        )
+
+    def forward(self, src, pos, reference_points, spatial_shapes, keep=None, rate=0.0):
+        """`keep`: the three dropout keep masks, or None (no dropout)."""
+
+        def drop(x, i):
+            if keep is None:
+                return x
+            return torch.where(keep[i], x / (1.0 - rate), x.new_zeros(()))
+
         attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes)
-        src = self.norm1(src + attn_out)
-        ffn = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + ffn)
+        src = self.norm1(src + drop(attn_out, 0))
+        ffn = self.linear2(drop(F.relu(self.linear1(src)), 1))
+        return self.norm2(src + drop(ffn, 2))
 
 
 class MSDeformAttnPixelDecoder(nn.Module):
@@ -112,9 +136,11 @@ class MSDeformAttnPixelDecoder(nn.Module):
     def __init__(self, in_channels: Dict[str, int], conv_dim: int = 256,
                  mask_dim: int = 256, enc_layers: int = 6, nheads: int = 8,
                  dim_feedforward: int = 1024, n_points: int = 4,
-                 msda_impl: str = "plain"):
+                 msda_impl: str = "plain", dropout: float = 0.0,
+                 grad_checkpoint: bool = False):
         super().__init__()
         self.conv_dim = conv_dim
+        self.dropout, self.grad_checkpoint = dropout, grad_checkpoint
         self.names_td = sorted(self.transformer_in_features, reverse=True)
         for idx, name in enumerate(self.names_td):
             self.add_module(f"input_proj{idx}_conv", nn.Conv2d(in_channels[name], conv_dim, 1))
@@ -133,7 +159,9 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.layer1_gn = nn.GroupNorm(32, conv_dim, eps=1e-5)
         self.mask_features = nn.Conv2d(conv_dim, mask_dim, 1)
 
-    def forward(self, features: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, features: Dict[str, torch.Tensor], deterministic: bool = True,
+                generator: torch.Generator | None = None,
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         srcs, pos_embeds, spatial_shapes = [], [], []
         for idx, name in enumerate(self.names_td):
             x = features[name].float()
@@ -149,7 +177,14 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
         out_seq = src_flat
         for layer in self.encoder_layers:
-            out_seq = layer(out_seq, pos_flat, ref_points, spatial_shapes)
+            keep = None
+            if not deterministic and self.dropout > 0.0:
+                keep = layer.draw_dropout(out_seq, self.dropout, generator)
+            args = (out_seq, pos_flat, ref_points, spatial_shapes, keep, self.dropout)
+            if self.grad_checkpoint and torch.is_grad_enabled():
+                out_seq = checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+            else:
+                out_seq = layer(*args)
 
         outs, start = [], 0
         for h, w in spatial_shapes:

@@ -5,6 +5,11 @@ FrozenBN + relu + 3x3/2 max pool, then bottleneck stacks (3, 4, 6, 3) with
 the stride on the 3x3 conv (STRIDE_IN_1X1=False). FrozenBN is the folded
 affine y = x * weight + bias. NCHW inside; parameter names follow the flax
 tree (`stem_conv1`, `res2_block0.conv1`, ...).
+
+FrozenBN's weight and bias are parameters, as the JAX package's flax
+params: they receive gradients, which count in the train step's global-norm
+clip, and the optimizer gives them a learning rate of 0. (Detectron2 keeps
+them as buffers, outside the norm.)
 """
 from __future__ import annotations
 
@@ -19,12 +24,12 @@ RESNET_FEATURE_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
 
 
 class FrozenBN(nn.Module):
-    """y = x * weight + bias per channel, with frozen buffers."""
+    """y = x * weight + bias per channel; the optimizer never moves them."""
 
     def __init__(self, features: int):
         super().__init__()
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.weight[:, None, None] + self.bias[:, None, None]

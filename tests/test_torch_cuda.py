@@ -93,6 +93,56 @@ def test_cuda_flash_matches_twin(cuda, dh):
 
 
 @pytest.mark.cuda
+def test_cuda_msda_backward_matches_twin(cuda):
+    """K2 against autograd through the plain core (atomics: summation order)."""
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in _msda_inputs(6, d=32))
+    grad_out = torch.randn(value.shape[0], locs.shape[1], value.shape[2] * 32,
+                           device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    before = ms_deform_attn_cuda.BWD_LAUNCHES
+    got = ms_deform_attn_cuda.ms_deform_attn_bwd_cuda(value, MSDA_SHAPES, locs, weights, grad_out)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_cuda.BWD_LAUNCHES == before + 1
+    ref = ms_deform_attn_cuda.ms_deform_attn_bwd_plain(value, MSDA_SHAPES, locs, weights, grad_out)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    # the autograd route: forward K1, backward K2
+    leaves = [t.clone().requires_grad_(True) for t in (value, locs, weights)]
+    out = ms_deform_attn_cuda.ms_deform_attn_cuda(leaves[0], MSDA_SHAPES, leaves[1], leaves[2])
+    out.backward(grad_out)
+    assert ms_deform_attn_cuda.BWD_LAUNCHES == before + 2
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, r, rtol=1e-4, atol=1e-4)
+
+
+def auction_cases(seed):
+    """(cost (B, Q, N), valid (B, N)) problems: random, quantized near-ties,
+    invalid columns, N < Q and N == Q."""
+    rng = np.random.RandomState(seed)
+    cases = []
+    for b, q, n in [(3, 100, 25), (2, 8, 3), (4, 37, 37), (2, 150, 40), (4, 100, 100)]:
+        cost = rng.rand(b, q, n).astype(np.float32) * 10
+        cases.append((cost, rng.rand(b, n) > 0.2))
+        cases.append((np.round(cost * 3) / 3, np.ones((b, n), bool)))  # many ties
+    return cases
+
+
+@pytest.mark.cuda
+def test_cuda_auction_matches_twin(cuda):
+    from s2d_tpu_torch.ops import auction, auction_cuda
+
+    for exact in (False, True):
+        for cost, valid in auction_cases(1):
+            ben = auction.build_benefits(torch.from_numpy(cost).to(cuda), torch.from_numpy(valid).to(cuda))
+            eps_list = auction.eps_schedule(cost.shape[2], exact)
+            before = auction_cuda.LAUNCHES
+            got = auction_cuda.auction_asym_cuda(ben, eps_list)
+            torch.cuda.synchronize()
+            assert auction_cuda.LAUNCHES == before + 1
+            ref = auction.auction_asym_plain(ben, eps_list)
+            assert torch.equal(got, ref), (cost.shape, exact)
+
+
+@pytest.mark.cuda
 def test_cuda_nms_matches_twin(cuda):
     for seed in range(5):
         iou, labels = _nms_case(seed, 50, seed % 2 == 0)
