@@ -56,6 +56,25 @@
    checkpointing) to the plain step's at a relative 2-norm of 2e-3, and the
    kernel step's update of every parameter to its float64 recomputation
    from the step's gradients (clip, Adam, decay, multiplier, -lr).
+9. holds K6 (the MSDA separable-sampling ablation, four variants) against
+   its plain version at the ablation tool's default shapes (empty and
+   noconstruct exactly, dotonly and full at rtol 1e-5 / atol 1e-6: both
+   round each product and sum on its own) and times both; then drives K6's
+   own path, the ablation tool (`s2d_tpu_torch.tools.bench_pallas_ablate`)
+   at its defaults, and checks its launches per variant;
+10. drives the --eval-only path: `evaluate_dataset` with the inference
+   config (configs/s2d_inference_kd_video_mask2former_R50_cls_agnostic.yaml)
+   at full width, seeded random weights, over a synthetic YTVIS set written
+   under build/: 3 videos of T = 8, 5 and 12 frames (T-buckets 8, 8, 16)
+   recorded at 720x1280 with ellipse ground truth, their 360x640 uint8
+   frames drawn from the seed and passed through `mapper=` (no image
+   files); the mask features are centred and the decoder's residual
+   branches scaled so that NMS keeps about 25 tracks a video (see
+   `spread_queries`). It checks the survivors, results.json (each entry's T segmentations decode at
+   720x1280), the AP keys and 6/9/1 K1/K3/K4 launches per video, prints
+   the frames/s and the stage seconds, then runs the same videos on the
+   plain path and requires identical keep-sets and labels, printing the
+   share of mask pixels that differ.
 With --profile, one more train step runs under torch.profiler: device time
 per stage, the top kernels and the device's idle share.
 
@@ -83,8 +102,14 @@ SEED = 0
 LEVELS = [(12, 20), (24, 40), (48, 80)]  # MSDA levels of a 384x640 padded input
 PER_CLIP = {"k1_msda": 6, "k3_flash": 9, "k4_nms": 1}
 KD_CONFIG = "configs/ytvis2021_kd_video_mask2former_R50_cls_agnostic.yaml"
+EVAL_CONFIG = "configs/s2d_inference_kd_video_mask2former_R50_cls_agnostic.yaml"
+EVAL_LENGTHS = (8, 5, 12)  # T-buckets 8, 8, 16
+EVAL_DATASET = "chip_smoke_ytvis"
+METRIC_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100")
 TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W, TRAIN_SLOTS, TRAIN_STEPS = 2, 3, 368, 640, 25, 3
 OFFSET_STD = 0.01  # the encoder's sampling-offset weights (see `new_train_state`)
+TRACKS = 25  # NMS survivors `spread_queries` aims the eval weights at
+MIN_TRACKS = 10  # NMS survivors the eval phase needs in each video
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet): HBM3 bytes/s
 # and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -845,6 +870,255 @@ def profile_train_step(state, step_fn, batch):
         print(f"  {ms:9.2f} ms  {name}")
 
 
+def ablate_checks(dev, record):
+    """K6, each variant, against its plain version at the ablation tool's
+    default shapes, timed beside its bound (tool.work: the bytes it must
+    move, the operations it must do). One PyTorch call computes `empty`
+    (`torch.zeros` of the output); the other three have none: `noconstruct`
+    broadcasts one column, and `dotonly`/`full` gather with per-point rows
+    and weights that no library sampler takes (WX is not a bilinear pair)."""
+    from s2d_tpu_torch.ops.msda_ablate import VARIANTS, msda_ablate_plain
+    from s2d_tpu_torch.ops.msda_ablate_cuda import msda_ablate
+    from s2d_tpu_torch.tools import bench_pallas_ablate as tool
+
+    args = tool.parse_args([])
+    inputs = tool.make_inputs(args, dev)
+    ng, gqp = inputs["vt"].shape[0], inputs["ya"].shape[-1]
+    library = {"empty": lambda: torch.zeros((ng, args.d, gqp), dtype=torch.float32, device=dev)}
+    print(f"K6 msda ablation: vt {tuple(inputs['vt'].shape)} bf16, points "
+          f"{tuple(inputs['ya'].shape)}")
+    for variant in VARIANTS:
+        got = tool.call(msda_ablate, variant, inputs, args)
+        torch.cuda.synchronize()
+        ref = tool.call(msda_ablate_plain, variant, inputs, args)
+        if variant in ("empty", "noconstruct"):
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K6 {variant}: differs from its plain version")
+            err = 0.0
+            print(f"  K6 {variant} vs plain: identical")
+        else:
+            err = require_close(f"K6 {variant} vs plain", got, ref, 1e-5, 1e-6)
+        del got, ref
+        record[f"k6_{variant}"] = dict(
+            name=f"msda_ablate_{variant}", route="cuda", source="s2d_tpu_torch/csrc/msda_ablate.cu",
+            replaces="tools/bench_pallas_ablate.py:34", max_abs_err=err,
+            ms=cuda_ms(lambda: tool.call(msda_ablate, variant, inputs, args)),
+            plain_ms=cuda_ms(lambda: tool.call(msda_ablate_plain, variant, inputs, args)),
+            **bound(*tool.work(variant, inputs, args.d)),
+            library_ms=cuda_ms(library[variant]) if variant in library else None,
+        )
+        r = record[f"k6_{variant}"]
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        print(f"  K6 {variant}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def ablate_path():
+    """K6's path: the ablation tool at its defaults, with the counts set to
+    0 just before it and read just after. Returns the launches per variant."""
+    from s2d_tpu_torch.ops import msda_ablate_cuda
+    from s2d_tpu_torch.tools import bench_pallas_ablate as tool
+
+    args = tool.parse_args([])
+    msda_ablate_cuda.LAUNCHES = {k: 0 for k in msda_ablate_cuda.LAUNCHES}
+    tool.run(args)
+    launches = dict(msda_ablate_cuda.LAUNCHES)
+    expected = {k: 1 + args.iters for k in launches}  # the warm-up and the timed calls
+    if launches != expected:
+        raise AssertionError(f"ablation tool: K6 launches {launches}, expected {expected}")
+    print(f"ablation tool: K6 launches {launches}")
+    return launches
+
+
+def write_eval_set(root: Path, rng) -> dict:
+    """A YTVIS set of EVAL_LENGTHS videos recorded at OUT_SIZE, each with 3
+    drifting ellipses as ground truth (per-frame RLE by the port's codec),
+    registered as EVAL_DATASET. Returns the 360x640 uint8 frames per video
+    id (no image file is written: the card has no cv2) and prints the host
+    time of one ground-truth (ellipse) mask's RLE encoding."""
+    from s2d_tpu_torch.data import rle, ytvis
+
+    h, w = OUT_SIZE
+    yy, xx = np.mgrid[:h, :w]
+    videos, annotations, frames = [], [], {}
+    rle.encode(np.zeros((8, 8), bool))  # builds the native RLE library, untimed
+    encode_s = 0.0
+    for vid, t in enumerate(EVAL_LENGTHS, start=1):
+        videos.append({"id": vid, "height": h, "width": w, "length": t,
+                       "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(t)]})
+        frames[vid] = rng.randint(0, 256, (t, IN_H, IN_W, 3), dtype=np.uint8)
+        for j in range(3):
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            ry, rx = rng.uniform(0.05, 0.25) * h, rng.uniform(0.05, 0.25) * w
+            vy, vx = rng.uniform(-10, 10, 2)
+            segs = []
+            for i in range(t):
+                mask = ((yy - cy - vy * i) / ry) ** 2 + ((xx - cx - vx * i) / rx) ** 2 < 1
+                start = time.perf_counter()
+                segs.append(rle.encode(mask))
+                encode_s += time.perf_counter() - start
+            annotations.append({"id": 3 * vid + j, "video_id": vid, "category_id": 1,
+                                "segmentations": segs, "iscrowd": 0})
+    n_masks = 3 * sum(EVAL_LENGTHS)
+    print(f"eval set: {n_masks} ground-truth masks, RLE encoding {encode_s * 1e3 / n_masks:.2f} "
+          f"ms a mask (host)")
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / "valid.json"
+    path.write_text(json.dumps({"videos": videos, "annotations": annotations,
+                                "categories": [{"id": 1, "name": "fg"}]}))
+    ytvis.register_ytvis(EVAL_DATASET, str(path), str(root), class_agnostic=True)
+    return frames
+
+
+def spread_queries(predictor, clip) -> tuple[float, int]:
+    """Two changes to the seeded weights, so that NMS keeps tens of tracks a
+    video, as with a trained model, and both the keep-set check and the
+    finalize leg (the survivors' readback and RLE) carry them:
+      * the mean mask feature of `clip` taken off the mask projection's
+        bias, so that the masks are not all of one sign;
+      * the decoder's residual branches (both attentions' output projections
+        and the FFN's second linear, every round) scaled down: at the seeded
+        init every query converges on one output over the 9 rounds, so the
+        50 predictions share one mask and NMS keeps 1 or 2, while at scale 0
+        the queries stay apart and NMS keeps all 50. The scale is bisected
+        until NMS keeps about TRACKS of the 50 on `clip`.
+    The masks stay speckled, not objects: random weights see no object in
+    random frames. Returns (scale, tracks kept on `clip`)."""
+    model = predictor.model
+    feats = []
+    hook = model.pixel_decoder.mask_features.register_forward_hook(
+        lambda mod, args, out: feats.append(out.mean(dim=(0, 2, 3))))
+    try:
+        predictor.forward(clip)
+    finally:
+        hook.remove()
+    branches = [w for mods in model.predictor.layers for w in (
+        mods["cross_attn"].out_proj_weight, mods["self_attn"].out_proj_weight,
+        mods["ffn"].linear2.weight)]
+    seeded = [w.detach().clone() for w in branches]
+
+    def kept(scale: float) -> int:
+        with torch.no_grad():
+            for w, w0 in zip(branches, seeded):
+                w.copy_(w0 * scale)
+        out, size = predictor.forward(clip)
+        return int(predictor.postprocess(out, size, size)["keep"].sum())
+
+    with torch.no_grad():
+        model.pixel_decoder.mask_features.bias.sub_(feats[0])
+    lo, hi = 0.0, 1.0
+    for _ in range(10):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if kept(mid) > TRACKS else (lo, mid)
+    return hi, kept(hi)
+
+
+def run_eval(predictor, frames, out_dir: Path, counters=None):
+    """evaluate_dataset over EVAL_DATASET with the frames injected; records
+    each video's keep-set and labels (device tensors, no sync) and, with
+    `counters`, its kernel launches. Returns (metrics, results, per video
+    [(keep, labels)], per video launches)."""
+    from s2d_tpu_torch.evaluation.evaluator import evaluate_dataset
+
+    own = predictor.postprocess
+    taped, per_video = [], []
+    last = read_counts(counters) if counters else None
+
+    def postprocess(*args, **kwargs):
+        nonlocal last
+        post = own(*args, **kwargs)
+        taped.append((post["keep"], post["labels"]))
+        if counters:
+            now = read_counts(counters)
+            per_video.append({k: now[k] - last[k] for k in now})
+            last = now
+        return post
+
+    predictor.postprocess = postprocess
+    try:
+        metrics = evaluate_dataset(predictor, EVAL_DATASET, output_dir=str(out_dir),
+                                   mapper=lambda record: {"image": frames[record["video_id"]]})
+    finally:
+        del predictor.postprocess
+    results = json.loads((out_dir / "results.json").read_text())
+    return metrics, results, taped, per_video
+
+
+def eval_path(dev):
+    """The --eval-only path at full width on the kernels, then the same
+    videos on the plain path. Returns the kernels' launches."""
+    from s2d_tpu_torch.config import from_s2d_config, load_config_tree
+    from s2d_tpu_torch.data import rle
+    from s2d_tpu_torch.demo_video import VideoPredictor
+    from s2d_tpu_torch.ops import masked_attention_cuda, ms_deform_attn_cuda, nms
+
+    root = Path("build") / "chip_smoke_eval"
+    frames = write_eval_set(root, np.random.RandomState(SEED + 2))
+    cfg = from_s2d_config(load_config_tree(EVAL_CONFIG))
+    predictor = VideoPredictor(cfg, seed=SEED, device=dev)
+    scale, tracks = spread_queries(predictor, frames[1])
+    print(f"eval weights: decoder residual branches x{scale:.4f}, mask features centred: "
+          f"NMS keeps {tracks} of {cfg.num_predictions} on video 1 at 360x640")
+    counters = {"k1_msda": (ms_deform_attn_cuda, "LAUNCHES"),
+                "k3_flash": (masked_attention_cuda, "LAUNCHES"), "k4_nms": (nms, "LAUNCHES")}
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    metrics, results, taped, per_video = run_eval(predictor, frames, root / "kernel", counters)
+    launches = read_counts(counters)
+    for i, grew in enumerate(per_video):
+        if grew != PER_CLIP:
+            raise AssertionError(f"eval video {i + 1}: launches {grew}, expected {PER_CLIP}")
+    missing = [k for k in METRIC_KEYS if k not in metrics]
+    if missing:
+        raise AssertionError(f"eval: metrics lack {missing}")
+    kept = [int(k.sum()) for k, _ in taped]
+    if len(results) != sum(kept):
+        raise AssertionError(f"eval: {len(results)} results for {kept} kept tracks")
+    for r in results:
+        segs = r["segmentations"]
+        if len(segs) != EVAL_LENGTHS[r["video_id"] - 1]:
+            raise AssertionError(f"eval: video {r['video_id']} entry with {len(segs)} frames")
+        if any(rle.decode(seg).shape != OUT_SIZE for seg in segs[:1] + segs[-1:]):
+            raise AssertionError(f"eval: video {r['video_id']} segmentation not at {OUT_SIZE}")
+    frames_total = sum(EVAL_LENGTHS)
+    print(f"eval path: {len(EVAL_LENGTHS)} videos, {frames_total} frames (T = {EVAL_LENGTHS}), "
+          f"{metrics['eval_seconds']:.3f} s, {metrics['frames_per_second']:.2f} frames/s; kept "
+          f"{kept} of {cfg.num_predictions}; launches per video {per_video}; results.json "
+          f"{len(results)} entries")
+    print("  " + ", ".join(f"{k} {metrics[k]:.4f}" for k in METRIC_KEYS))
+    print("  stage seconds: " + ", ".join(f"{k[len('stage_s/'):]} {v}" for k, v in metrics.items()
+                                          if k.startswith("stage_s/")))
+    counts = [len(seg["counts"]) for r in results for seg in r["segmentations"]]
+    print(f"  results.json: {len(counts)} frame masks, RLE string of {np.mean(counts):.0f} "
+          f"characters a mask on average ({min(counts)} to {max(counts)})")
+    if min(kept) < MIN_TRACKS:
+        raise AssertionError(f"eval: kept {kept} tracks, fewer than {MIN_TRACKS} in a video")
+
+    plain = VideoPredictor(cfg, seed=None, device=dev, kernels=False)
+    plain.model.load_state_dict(predictor.model.state_dict())
+    del predictor
+    before = read_counts(counters)
+    _, plain_results, plain_taped, _ = run_eval(plain, frames, root / "plain")
+    if read_counts(counters) != before:
+        raise AssertionError("the plain eval path launched a kernel")
+    failures = []
+    for vid, ((keep, labels), (pkeep, plabels)) in enumerate(zip(taped, plain_taped), start=1):
+        if not (torch.equal(keep, pkeep) and torch.equal(labels, plabels)):
+            failures.append(f"video {vid}: keep-set or labels differ ({int(keep.sum())} vs "
+                            f"{int(pkeep.sum())} kept)")
+    differ = pixels = 0
+    for r, q in zip(results, plain_results):
+        for a, b in zip(r["segmentations"], q["segmentations"]):
+            differ += int((rle.decode(a) != rle.decode(b)).sum())
+            pixels += OUT_SIZE[0] * OUT_SIZE[1]
+    print(f"plain vs kernel eval path: keep-sets and labels "
+          f"{'identical' if not failures else 'DIFFER'} on {len(taped)} videos; mask pixels "
+          f"differing {differ / max(pixels, 1):.3e} ({differ} of {pixels})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -931,17 +1205,28 @@ def main(argv=None) -> int:
 
     # 8. one train step on the plain path, from the same state
     compare_train_step(dev, batch, class_scale)
+    del batch
 
-    by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"]},
-               "k3_flash": {"inference": launches["k3_flash"]},
-               "k4_nms": {"inference": launches["k4_nms"]},
+    # 9. K6 against its plain version, then its path: the ablation tool
+    ablate_checks(dev, record)
+    ablate_launches = ablate_path()
+
+    # 10. the --eval-only path: evaluate_dataset -> results.json -> AP
+    eval_launches = eval_path(dev)
+
+    by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
+                           "eval": eval_launches["k1_msda"]},
+               "k3_flash": {"inference": launches["k3_flash"], "eval": eval_launches["k3_flash"]},
+               "k4_nms": {"inference": launches["k4_nms"], "eval": eval_launches["k4_nms"]},
                "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"]},
-               "k5_auction": {"train": train_launches["k5_auction"]}}
+               "k5_auction": {"train": train_launches["k5_auction"]},
+               **{f"k6_{v}": {"ablation": n} for v, n in ablate_launches.items()}}
     for key, paths in by_path.items():
         if not all(paths.values()):
             raise AssertionError(f"{key} was not launched on its path: {paths}")
     kernels = [dict(record[k], launches=sum(by_path[k].values()), launches_by_path=by_path[k])
-               for k in ("k1_msda", "k2_msda_bwd", "k3_flash", "k4_nms", "k5_auction")]
+               for k in ("k1_msda", "k2_msda_bwd", "k3_flash", "k4_nms", "k5_auction",
+                         *(f"k6_{v}" for v in ablate_launches))]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

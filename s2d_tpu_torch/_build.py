@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
-All kernels compile with nvcc into ONE shared library with a plain C
-interface, loaded with ctypes; no PyTorch header is compiled, so a build
-takes seconds. The library lands in `build/s2d_tpu_torch/` at the root of
+Each kernel source compiles with its own nvcc process, all started
+together, and one more nvcc links the objects into ONE shared library with a
+plain C interface, loaded with ctypes; no PyTorch header is compiled, so a
+build takes seconds. The library lands in `build/s2d_tpu_torch/` at the root of
 the checkout, named by a hash of the sources and flags, and is built at the
 first `library()` call, never at import. Without nvcc, or when nvcc fails,
 `library()` raises with the compiler's own message.
@@ -22,10 +23,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "s2d_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _P = ctypes.c_void_p
@@ -49,6 +49,8 @@ SIGNATURES = {
     ),
     # iou, labels, keep, N, threshold, stream
     "s2d_greedy_nms": (_P, _P, _P, _I, _F, _P),
+    # variant, vt, ya, wy0, wy1, x0, wx0, wx1, out, ng, W*d, k, gqp, W, d, stream
+    "s2d_msda_ablate": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -68,7 +70,7 @@ def _sources() -> list[Path]:
 
 
 def _library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -86,18 +88,30 @@ def _compile(target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
     # build beside the target and rename: a concurrent or cut build never
     # leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}"
-        )
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=target.parent) as work:
+        objects, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-o", obj, str(src)]
+            objects.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, proc in procs:
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{output}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(work, target.name)
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objects]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}{proc.stdout}"
+            )
+        os.replace(tmp, target)
 
 
 def library() -> ctypes.CDLL:

@@ -29,6 +29,7 @@ from torch.profiler import record_function
 
 from .checkpoint.from_jax import load_npz, load_params_from_jax
 from .config import VideoConfig, load_config
+from .data.mapper import resize_shortest_edge
 from .evaluation.inference import finalize_predictions, postprocess_video
 from .models.meta_arch import build_model, preprocess_clip
 
@@ -75,38 +76,45 @@ class VideoPredictor:
         self.model.to(self.device)
 
     @torch.no_grad()
-    def predict(self, frames_u8, output_size: Tuple[int, int] | None = None):
-        """(model outputs, postprocess dict on the device) for one clip.
-        output_size defaults to the frames' own size."""
+    def forward(self, frames_u8, frame_valid=None):
+        """(model outputs, unpadded input size) for one clip. frame_valid
+        (T,) bool marks the real frames of a T-bucket-padded clip: the
+        decoder blocks the pad frames' keys, as JAX's."""
         cfg = self.cfg
         with record_function("preprocess"):
             images, image_size = preprocess_clip(
                 frames_u8, cfg.pixel_mean, cfg.pixel_std, cfg.size_divisibility, self.device
             )
-        out = self.model(images)
+            if frame_valid is not None:
+                frame_valid = torch.as_tensor(frame_valid, device=self.device)
+        return self.model(images, frame_valid=frame_valid), image_size
+
+    @torch.no_grad()
+    def postprocess(self, out, image_size, output_size, num_frames: int | None = None):
+        """The postprocess dict on the device; num_frames cuts the pad
+        frames of a T-bucket off."""
+        cfg = self.cfg
         with record_function("postprocess"):
-            post = postprocess_video(
+            return postprocess_video(
                 out["pred_logits"], out["pred_masks"],
                 num_predictions=cfg.num_predictions, num_classes=cfg.num_classes,
-                image_size=image_size, output_size=tuple(output_size or image_size),
-                use_nms=cfg.use_nms, nms_thresh=cfg.nms_thresh,
+                image_size=image_size, output_size=tuple(output_size),
+                num_frames=num_frames, use_nms=cfg.use_nms, nms_thresh=cfg.nms_thresh,
                 nms_impl="kernel" if self.kernels else "plain",
             )
-        return out, post
+
+    def predict(self, frames_u8, output_size: Tuple[int, int] | None = None,
+                frame_valid=None, num_frames: int | None = None):
+        """(model outputs, postprocess dict on the device) for one clip.
+        output_size defaults to the frames' own size."""
+        out, image_size = self.forward(frames_u8, frame_valid)
+        return out, self.postprocess(out, image_size, output_size or image_size, num_frames)
 
     def __call__(self, frames_u8, output_size: Tuple[int, int] | None = None
                  ) -> Dict[str, np.ndarray]:
         post = self.predict(frames_u8, output_size)[1]
         with record_function("finalize"):
             return finalize_predictions(post)
-
-
-def resize_shortest_edge(h: int, w: int, short: int, max_size: int) -> Tuple[int, int]:
-    """`s2d_tpu/data/augment.resize_shortest_edge`, for the test-time resize."""
-    scale = short / min(h, w)
-    if max(h, w) * scale > max_size:
-        scale = max_size / max(h, w)
-    return int(h * scale + 0.5), int(w * scale + 0.5)
 
 
 def parse_args(argv=None):

@@ -1,0 +1,228 @@
+"""End-to-end YTVIS evaluator: model -> results.json -> AP table.
+
+Counterpart of `s2d_tpu/evaluation/evaluator.py`. Per video, the whole
+clip goes through the forward and `postprocess_video`; the NMS survivors'
+tracks become per-frame COCO RLEs (`predictions_to_results`), the list is
+dumped to `results.json` and scored with the spatio-temporal AP of
+`ytvos_eval.py` (class-agnostic, as S2D evaluates).
+
+The pipeline is JAX's, in three threads:
+  * a prefetch thread maps video i+1 (frame read + resize), pads it to a
+    T-bucket and starts its host->device upload on a side stream;
+  * the main thread runs the forward and `postprocess_video` (on a CUDA
+    device both are queued asynchronously);
+  * a finalize thread reads the survivors back (`masks[keep]`, as
+    `finalize_predictions`) and RLE-encodes them.
+The queues have depth 2. `stage_s/*` holds each stage's wall seconds,
+keyed by the thread that pays them (the stages overlap, so their sum
+exceeds the wall).
+
+T-bucket padding as JAX: a clip is zero-padded to a multiple of 8 frames,
+the decoder blocks the pad frames' keys (`frame_valid`) and postprocess
+cuts them off (`num_frames`). One model with the K3 flash cross-attention
+serves every bucket (JAX's short-bucket model was a TPU timing choice).
+Left out: the JAX package's `time_mesh` (frame-parallel eval over a mesh)
+and its bit-packed crop transport of the masks (a TPU transport
+workaround): the survivors' masks come back whole.
+
+Multi-host: each process evaluates its shard of videos into
+`results_shard{i}.json`; `merge_shard_results` + `score_results` score the
+merged list.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data import rle as rle_codec
+from ..data.loader import FinalizeThread, _prefetch
+from ..data.mapper import EvalMapper
+from ..data.ytvis import get_dataset
+from .ytvos_eval import evaluate_vis
+
+T_BUCKET = 8  # clips are zero-padded to a multiple of this many frames
+QUEUE_DEPTH = 2
+
+
+def predictions_to_results(
+    video_id: int, preds: Dict[str, np.ndarray], category_offset: int = 1
+) -> List[dict]:
+    """Binarized track masks (n, T, H, W) -> results.json entries (per-frame
+    RLE)."""
+    results = []
+    for score, label, track in zip(preds["scores"], preds["labels"], preds["masks"]):
+        results.append({
+            "video_id": int(video_id),
+            "score": float(score),
+            "category_id": int(label) + category_offset,
+            "segmentations": [rle_codec.encode(frame) for frame in track],
+        })
+    return results
+
+
+def collect_gt(dicts: List[dict]) -> List[dict]:
+    """Ground-truth track entries for ytvos_eval (category ids 1-based)."""
+    return [
+        {
+            "video_id": record["video_id"],
+            "category_id": o["category_id"] + 1,
+            "segmentations": o["segmentations"],
+        }
+        for record in dicts
+        for o in record["annotations"]
+    ]
+
+
+def merge_shard_results(output_dir: str, num_shards: int) -> List[dict]:
+    """Concatenate the per-process shard result files."""
+    results: List[dict] = []
+    for i in range(num_shards):
+        with open(os.path.join(output_dir, f"results_shard{i}.json")) as f:
+            results.extend(json.load(f))
+    return results
+
+
+def score_results(
+    dataset_name: str, results: List[dict], max_videos: Optional[int] = None
+) -> Dict[str, float]:
+    """Score an assembled results list (e.g. merged shards) against the
+    registered dataset's ground truth."""
+    dicts, _ = get_dataset(dataset_name)
+    if max_videos:
+        dicts = dicts[:max_videos]
+    return evaluate_vis(collect_gt(dicts), results, use_cats=False)
+
+
+def _upload(frames: np.ndarray, frame_valid: np.ndarray, device: torch.device, stream):
+    """Start the copy of a clip to the device. On a CUDA device the copy
+    runs from pinned memory on `stream` and an event marks its end, which
+    the consumer waits for; elsewhere it is a plain tensor."""
+    if stream is None:
+        return torch.from_numpy(frames).to(device), torch.from_numpy(frame_valid).to(device), None
+    with torch.cuda.stream(stream):
+        frames_dev = torch.from_numpy(frames).pin_memory().to(device, non_blocking=True)
+        valid_dev = torch.from_numpy(frame_valid).pin_memory().to(device, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return frames_dev, valid_dev, ready
+
+
+def evaluate_dataset(
+    predictor,
+    dataset_name: str,
+    output_dir: Optional[str] = None,
+    max_videos: Optional[int] = None,
+    num_shards: int = 1,
+    shard_index: int = 0,
+    mapper: Optional[Callable[[dict], dict]] = None,
+) -> Dict[str, float]:
+    """--eval-only path: run `predictor` (a `demo_video.VideoPredictor`)
+    over a registered dataset, write results.json and score it.
+
+    mapper: record -> a dict with "image", the (T, H, W, 3) uint8 frames at
+    the test size; by default `EvalMapper` reads and resizes the record's
+    frame files. Returns the AP metrics, `eval_seconds`,
+    `frames_per_second` and `stage_s/*`. With num_shards > 1 the metrics
+    cover this shard only (merge with `merge_shard_results`)."""
+    dicts, _ = get_dataset(dataset_name)
+    if max_videos:
+        dicts = dicts[:max_videos]
+    if num_shards > 1:
+        dicts = dicts[shard_index::num_shards]
+    cfg = predictor.cfg
+    mapper = mapper or EvalMapper(cfg.min_size_test, cfg.max_size_test)
+    device = predictor.device
+    upload_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    results: List[dict] = []
+    gt_annotations: List[dict] = []
+    stage: Dict[str, float] = {
+        "decode_map": 0.0,           # prefetch: frame read + resize + upload start
+        "preprocess_dispatch": 0.0,  # main: forward + postprocess calls
+        "dispatch_fwd": 0.0,         # main: the forward call (within the above)
+        "dispatch_post": 0.0,        # main: the postprocess call (within the above)
+        "put_wait": 0.0,             # main: backpressure from the finalize thread
+        "readback_small": 0.0,       # finalize: keep/scores/labels, the first host
+        #                              read, so the wait for the device rides here
+        "readback_masks": 0.0,       # finalize: the survivors' masks
+        "unpack": 0.0,               # finalize: none here (no bit-pack transport)
+        "rle_encode": 0.0,           # finalize: counts + COCO string encode
+        "score": 0.0,                # main, after the loop: evaluate_vis
+    }
+
+    def timed_map():
+        for record in dicts:
+            t0 = time.perf_counter()
+            frames = np.asarray(mapper(record)["image"])
+            t, h, w = frames.shape[:3]
+            pad_t = -t % T_BUCKET
+            if pad_t:
+                frames = np.pad(frames, ((0, pad_t), (0, 0), (0, 0), (0, 0)))
+            frame_valid = np.arange(t + pad_t) < t
+            uploaded = _upload(frames, frame_valid, device, upload_stream)
+            stage["decode_map"] += time.perf_counter() - t0
+            yield record, uploaded, t, (h, w)
+
+    def finalize(video_id, post):
+        t0 = time.perf_counter()
+        keep = post["keep"].cpu().numpy()
+        scores = post["scores"].cpu().numpy()[keep]
+        labels = post["labels"].cpu().numpy()[keep]
+        t1 = time.perf_counter()
+        kept = torch.from_numpy(np.flatnonzero(keep)).to(post["masks"].device)
+        masks = post["masks"].index_select(0, kept).cpu().numpy()
+        t2 = time.perf_counter()
+        results.extend(predictions_to_results(
+            video_id, {"scores": scores, "labels": labels, "masks": masks}))
+        stage["readback_small"] += t1 - t0
+        stage["readback_masks"] += t2 - t1
+        stage["rle_encode"] += time.perf_counter() - t2
+
+    fin = FinalizeThread(finalize, depth=QUEUE_DEPTH)
+    start = time.perf_counter()
+    try:
+        for record, (frames, frame_valid, ready), t, image_hw in _prefetch(timed_map(), QUEUE_DEPTH):
+            t_disp = time.perf_counter()
+            if ready is not None:
+                main = torch.cuda.current_stream(device)
+                main.wait_event(ready)
+                frames.record_stream(main)
+                frame_valid.record_stream(main)
+            out, image_size = predictor.forward(frames, frame_valid)
+            t_fwd = time.perf_counter()
+            post = predictor.postprocess(
+                out, image_size, (record["height"], record["width"]), num_frames=t)
+            t_put = time.perf_counter()
+            stage["dispatch_fwd"] += t_fwd - t_disp
+            stage["dispatch_post"] += t_put - t_fwd
+            stage["preprocess_dispatch"] += t_put - t_disp
+            fin.put(record["video_id"], post)
+            stage["put_wait"] += time.perf_counter() - t_put
+            gt_annotations.extend(collect_gt([record]))
+    finally:
+        t_close = time.perf_counter()
+        fin.close()
+        stage["put_wait"] += time.perf_counter() - t_close
+    elapsed = time.perf_counter() - start
+
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        name = "results.json" if num_shards == 1 else f"results_shard{shard_index}.json"
+        with open(os.path.join(output_dir, name), "w") as f:
+            json.dump(results, f)
+
+    t_score = time.perf_counter()
+    metrics = evaluate_vis(gt_annotations, results, use_cats=False)
+    stage["score"] = time.perf_counter() - t_score
+
+    metrics["eval_seconds"] = elapsed
+    total_frames = sum(d["length"] for d in dicts)
+    metrics["frames_per_second"] = total_frames / elapsed if elapsed else 0.0
+    for k, v in stage.items():
+        metrics[f"stage_s/{k}"] = round(v, 3)
+    return metrics

@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from s2d_tpu_torch.ops import ms_deform_attn_cuda, nms
+from s2d_tpu_torch.ops import ms_deform_attn_cuda, msda_ablate_cuda, nms
 from s2d_tpu_torch.ops.masked_attention_cuda import (
     masked_attention_plain,
     masked_cross_attention,
 )
 from s2d_tpu_torch.ops.ms_deform_attn import ms_deform_attn_plain
+from s2d_tpu_torch.ops.msda_ablate import VARIANTS, msda_ablate_plain
 
 # K1 levels: wide, tall and square, with out-of-range locations
 MSDA_SHAPES = [(4, 12), (10, 3), (6, 6)]
@@ -59,6 +60,34 @@ def _nms_case(seed, n, grid):
     np.fill_diagonal(iou, 1.0)
     labels = rng.randint(0, 3, n).astype(np.int32)
     return iou, labels
+
+
+# K6 at small shapes: ng=2, rows h*g = 6 of k = 8, W = 5 columns of d = 8
+# channels, gqp = 256 points (2 tiles of 128)
+ABLATE = dict(ng=2, hg=6, k=8, w=5, d=8, p_tile=128, gqp=256)
+
+
+def _ablate_inputs(seed, ng=2, hg=6, k=8, w=5, d=8, gqp=256):
+    """numpy K6 inputs (vt's values bf16) with the dropped corners hit: rows
+    ya = k-1 (ya+1 = k has no row of vt) and ya = h*g (ya+1 reads a real row
+    past h*g), columns x0 = W-1 (x0+1 = W has no column)."""
+    rng = np.random.RandomState(seed)
+    vt = torch.from_numpy(rng.randn(ng, w * d, k).astype(np.float32))
+    vt = vt.to(torch.bfloat16).float().numpy()
+    pts = (ng, 1, gqp)
+    ya = rng.randint(0, hg, pts).astype(np.int32)
+    ya[:, :, :16] = k - 1
+    ya[:, :, 16:32] = hg
+    x0 = rng.randint(0, w, pts).astype(np.int32)
+    x0[:, :, 8:24] = w - 1
+    return vt, ya, x0, [rng.rand(*pts).astype(np.float32) for _ in range(4)]
+
+
+def _ablate_tensors(vt, ya, x0, weights, device="cpu"):
+    """(vt bf16, ya, wy0, wy1, x0, wx0, wx1): the wrappers' argument order."""
+    wy0, wy1, wx0, wx1 = (torch.from_numpy(w).to(device) for w in weights)
+    return (torch.from_numpy(vt).to(device, torch.bfloat16), torch.from_numpy(ya).to(device),
+            wy0, wy1, torch.from_numpy(x0).to(device), wx0, wx1)
 
 
 @pytest.fixture
@@ -149,3 +178,22 @@ def test_cuda_nms_matches_twin(cuda):
         iou_t, lab_t = torch.from_numpy(iou).to(cuda), torch.from_numpy(labels).to(cuda)
         got = nms.greedy_mask_nms(iou_t, lab_t, 0.75)
         assert torch.equal(got, nms.greedy_mask_nms_plain(iou_t, lab_t, 0.75))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_msda_ablate_matches_twin(cuda, variant):
+    """K6 against its plain version, the dropped corners included: exact for
+    empty and noconstruct; dotonly and full round each product and sum on
+    their own in both (no FMA contraction), held at rtol 1e-5 / atol 1e-6."""
+    args = _ablate_tensors(*_ablate_inputs(7), device=cuda)
+    w, d = ABLATE["w"], ABLATE["d"]
+    before = msda_ablate_cuda.LAUNCHES[variant]
+    got = msda_ablate_cuda.msda_ablate(variant, *args, w, d)
+    torch.cuda.synchronize()
+    assert msda_ablate_cuda.LAUNCHES[variant] == before + 1
+    ref = msda_ablate_plain(variant, *args, w, d)
+    if variant in ("empty", "noconstruct"):
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)

@@ -118,17 +118,26 @@ def test_params_from_jax_full_size_maps_every_leaf():
 
 
 def test_main_path_imports_no_jax_and_nothing_of_s2d_tpu():
+    """With jax, flax, yaml, s2d_tpu, cv2 and PIL blocked on import, every
+    module of the port and chip_smoke import, and nothing is built."""
     code = (
         "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'yaml', 's2d_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import s2d_tpu_torch, s2d_tpu_torch._build, s2d_tpu_torch.config\n"
         "import s2d_tpu_torch.demo_video, s2d_tpu_torch.checkpoint.from_jax\n"
         "import s2d_tpu_torch.evaluation.inference, s2d_tpu_torch.models.meta_arch\n"
         "import s2d_tpu_torch.ops.ms_deform_attn_cuda, s2d_tpu_torch.ops.masked_attention_cuda\n"
-        "import s2d_tpu_torch.ops.nms, chip_smoke\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2', 'yaml', 's2d_tpu'))\n"
-        "assert not bad, bad\n"
+        "import s2d_tpu_torch.ops.nms, s2d_tpu_torch.ops.msda_ablate_cuda\n"
+        "import s2d_tpu_torch.tools.bench_pallas_ablate, s2d_tpu_torch.train_net_video\n"
+        "import s2d_tpu_torch.evaluation.evaluator, s2d_tpu_torch.evaluation.ytvos_eval\n"
+        "import s2d_tpu_torch.data.rle, s2d_tpu_torch.data.ytvis, s2d_tpu_torch.data.mapper\n"
+        "import s2d_tpu_torch.data.loader, s2d_tpu_torch.native, chip_smoke\n"
         "assert s2d_tpu_torch._build._LIB is None  # nothing built at import\n"
+        "assert s2d_tpu_torch.native._LIB is None and not s2d_tpu_torch.native._TRIED\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -446,14 +446,15 @@ def test_params_to_jax_round_trip_full_size():
 
 
 def test_train_slice_imports_no_jax(tmp_path):
-    """With jax and s2d_tpu blocked on import, the port loads a YAML config,
+    """With jax, s2d_tpu, cv2 and PIL blocked on import, the port loads a YAML config,
     builds a train state on the CPU and runs one tiny step; lazy imports
     inside functions would fail here."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 's2d_tpu'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 's2d_tpu',\n"
+        "                                  'cv2', 'PIL'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import torch\n"
