@@ -8,16 +8,20 @@
 2. builds the CUDA kernels from s2d_tpu_torch/csrc with nvcc (sm_90a);
 3. holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and times both, beside the least time the card could
-   take (bound) and, where one PyTorch call computes the same function, that
-   call's time: K1 MSDA forward, K3 flash attention (atol 1e-4 in f32:
-   summation order and expf differ), K4 NMS (exactly), K2 MSDA backward at
+   take (bound; K3's products at the rate of 3xTF32 on the tensor cores, the
+   others' at the f32 rate of the CUDA cores) and, where one PyTorch call
+   computes the same function, that call's time: K1 MSDA forward at the inference encoder's shapes (B = 8
+   frames) and the train step's (B = 6), K3 flash attention at each key
+   length of the decoder (1920, 7680, 30720; its time a clip is 3 launches
+   at each) (K1 and K3 at atol 1e-4 in f32: summation order, the 3xTF32
+   products and exp differ), K4 NMS (exactly), K2 MSDA backward at
    the train step's shapes (d value at atol 1e-4: atomics sum in another
    order; d locations and d weights at atol 1e-4 + 2e-5 max|d|: f32
    rounding of the sampling coordinates; no sampling coordinate within 1e-3
    pixels of a bilinear kink, where the location gradient is two-valued);
 4. drives the inference path: a full-width VideoPredictor (R50, 256 hidden,
    100 queries, 6 encoder layers, 9 decoder rounds, seeded random weights)
-   answers 3 requests, each a T=8 uint8 clip at 360x640 with 720x1280
+   answers 4 requests, each a T=8 uint8 clip at 360x640 with 720x1280
    output, and checks that each clip launched K1 6 times, K3 9 times and K4
    once and that its outputs are finite;
 5. runs the first clip again on the plain PyTorch path on the card, with the
@@ -75,8 +79,11 @@
    the frames/s and the stage seconds, then runs the same videos on the
    plain path and requires identical keep-sets and labels, printing the
    share of mask pixels that differ.
-With --profile, one more train step runs under torch.profiler: device time
-per stage, the top kernels and the device's idle share.
+With --profile, one more inference clip and one more train step run under
+torch.profiler: device time per stage, the top kernels and the device's idle
+share. Run from the root of another checkout of the package (with
+PYTHONPATH set to it), this file times and checks that checkout's kernels
+and paths: the way to compare two commits in one call.
 
 Any failure raises (exit code != 0). The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -97,7 +104,7 @@ import torch
 
 T, IN_H, IN_W = 8, 360, 640
 OUT_SIZE = (720, 1280)
-REQUESTS = 3
+REQUESTS = 4  # the first clip, then 3 timed ones
 SEED = 0
 LEVELS = [(12, 20), (24, 40), (48, 80)]  # MSDA levels of a 384x640 padded input
 PER_CLIP = {"k1_msda": 6, "k3_flash": 9, "k4_nms": 1}
@@ -110,10 +117,12 @@ TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W, TRAIN_SLOTS, TRAIN_STEPS = 2, 3, 368, 640, 2
 OFFSET_STD = 0.01  # the encoder's sampling-offset weights (see `new_train_state`)
 TRACKS = 25  # NMS survivors `spread_queries` aims the eval weights at
 MIN_TRACKS = 10  # NMS survivors the eval phase needs in each video
-# published peaks of one H100 SXM at 700 W (NVIDIA data sheet): HBM3 bytes/s
-# and float32 operations/s outside the tensor cores
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
+# bytes/s, float32 operations/s outside the tensor cores, TF32 operations/s
+# on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 
 def card_line() -> str:
@@ -124,13 +133,39 @@ def card_line() -> str:
     return out[0]
 
 
+SLEEP_CYCLES_PER_S = 2e9  # above the card's clock: a sleep lasts at least its seconds
+MAX_SLEEP_S = 0.05
+
+
+def host_ms(fn, iters: int = 20, repeats: int = 5) -> float:
+    """Host time to enqueue one call (no synchronize inside a loop): the
+    median over `repeats` loops of each loop's mean over `iters` calls (the
+    host is shared, and a loop now and then reads a preempted core)."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(repeats):
+        start = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        means.append((time.perf_counter() - start) * 1e3 / iters)
+        torch.cuda.synchronize()
+    return float(np.median(means))
+
+
 def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device time of one call, by CUDA events over `iters` calls."""
+    """Mean device time of one call, by CUDA events over `iters` calls. The
+    calls queue up behind a device-side sleep as long as the host needs to
+    enqueue them (up to MAX_SLEEP_S), so a call shorter than its own launch
+    overhead is timed on the device and not at the host's launch rate; a
+    call that synchronizes is timed as it runs."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    sleep_s = min(MAX_SLEEP_S, 2e-3 * iters * host_ms(fn, 2, 1))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -139,12 +174,12 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> dict:
     """The least time of a call: its bytes (each input read once, each output
-    written once) at the HBM rate, or its f32 operations at the f32 peak,
-    whichever is longer."""
+    written once) at the HBM rate, or its operations at `ops_per_s` (by
+    default f32 on the CUDA cores), whichever is longer."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     if by_bytes >= by_ops:
         return dict(bound_ms=by_bytes, bound_by="bytes")
     return dict(bound_ms=by_ops, bound_by="operations")
@@ -323,28 +358,44 @@ def kernel_checks(dev, record):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    # K1 at the inference encoder's shapes: B=T frames
-    value, locs, weights = msda_inputs(T, dev, gen)
-    print(f"K1 msda: value {tuple(value.shape)}, {((locs < 0) | (locs > 1)).any(-1).float().mean().item():.1%}"
-          " of the points outside [0, 1]")
-    got = k1.ms_deform_attn_cuda(value, LEVELS, locs, weights)
-    torch.cuda.synchronize()
-    err = require_close("K1 vs plain", got, ms_deform_attn_plain(value, LEVELS, locs, weights),
-                        0.0, 1e-4)
-    # per point and channel: 4 products and 3 sums (bilinear), 1 product and
-    # 1 sum (attention weight)
+    # K1 at the inference encoder's shapes (B = T frames, the main path's,
+    # whose numbers head the record) and the train step's (B = 2 clips x 3)
+    k1_by_shape = {}
+    for path, frames in (("inference", T), ("train", TRAIN_B * TRAIN_T)):
+        value, locs, weights = msda_inputs(frames, dev, gen)
+        print(f"K1 msda ({path}): value {tuple(value.shape)}, "
+              f"{((locs < 0) | (locs > 1)).any(-1).float().mean().item():.1%} of the points "
+              "outside [0, 1]")
+        got = k1.ms_deform_attn_cuda(value, LEVELS, locs, weights)
+        torch.cuda.synchronize()
+        err = require_close(f"K1 vs plain ({path})", got,
+                            ms_deform_attn_plain(value, LEVELS, locs, weights), 0.0, 1e-4)
+        # per point and channel: 4 products and 3 sums (bilinear), 1 product
+        # and 1 sum (attention weight)
+        k1_by_shape[path] = dict(
+            value=list(value.shape), max_abs_err=err,
+            ms=cuda_ms(lambda: k1.ms_deform_attn_cuda(value, LEVELS, locs, weights)),
+            host_ms=host_ms(lambda: k1.ms_deform_attn_cuda(value, LEVELS, locs, weights)),
+            plain_ms=cuda_ms(lambda: ms_deform_attn_plain(value, LEVELS, locs, weights)),
+            **bound(nbytes(value, locs, weights, got), 9 * weights.numel() * value.shape[-1]))
+        del value, locs, weights, got
+    main = k1_by_shape["inference"]
     record["k1_msda"] = dict(
         name="ms_deform_attn_fwd", route="cuda", source="s2d_tpu_torch/csrc/ms_deform_attn_fwd.cu",
-        replaces="s2d_tpu/ops/ms_deform_attn_pallas.py:82", max_abs_err=err,
-        ms=cuda_ms(lambda: k1.ms_deform_attn_cuda(value, LEVELS, locs, weights)),
-        plain_ms=cuda_ms(lambda: ms_deform_attn_plain(value, LEVELS, locs, weights)),
-        **bound(nbytes(value, locs, weights, got), 9 * weights.numel() * value.shape[-1]),
-        library_ms=None,
+        replaces="s2d_tpu/ops/ms_deform_attn_pallas.py:82",
+        max_abs_err=max(e["max_abs_err"] for e in k1_by_shape.values()),
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None, by_shape=k1_by_shape,
     )
+    for path, e in k1_by_shape.items():
+        print(f"  K1 ({path}, value {tuple(e['value'])}): kernel {e['ms']:.4f} ms (host "
+              f"{e['host_ms']:.4f} ms to enqueue), plain {e['plain_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
 
     # K3 at the decoder's shapes: BH=8, Q=100, Dh=32, K = T*h*w per level;
-    # frames 6 and 7 are pad frames (keys blocked), query 5 fully blocked
-    k3_errs = []
+    # frames 6 and 7 are pad frames (keys blocked), query 5 fully blocked.
+    # A clip launches it 3 times at each K.
+    k3_by_len, work = [], []
     for h, w in LEVELS:
         k_len = T * h * w
         q = torch.randn(8, 100, 32, device=dev, generator=gen)
@@ -357,25 +408,48 @@ def kernel_checks(dev, record):
         got = k3.masked_cross_attention(q, kk, v, mask)
         torch.cuda.synchronize()
         if not torch.all(got[:, 5] == 0):
-            raise AssertionError("K3: a fully blocked row must give 0")
-        k3_errs.append(require_close(f"K3 vs plain (K={k_len})", got,
-                                     k3.masked_attention_plain(q, kk, v, mask), 0.0, 1e-4))
-    # the library call: scaled_dot_product_attention with a boolean mask of
-    # the keys each query may see; it has no answer for a fully blocked row,
-    # so row 5 sees what row 4 sees there
-    allowed = ~blocked
-    allowed[:, :, 5] = allowed[:, :, 4]
-    allowed = allowed.expand(1, 8, 100, k_len)
-    q4, k4_, v4 = q[None], kk[None], v[None]
+            raise AssertionError(f"K3 (K={k_len}): a fully blocked row must give 0")
+        err = require_close(f"K3 vs plain (K={k_len})", got,
+                            k3.masked_attention_plain(q, kk, v, mask), 0.0, 1e-4)
+        # the library call: scaled_dot_product_attention with a boolean mask
+        # of the keys each query may see; it has no answer for a fully
+        # blocked row, so row 5 sees what row 4 sees there
+        allowed = ~blocked
+        allowed[:, :, 5] = allowed[:, :, 4]
+        allowed = allowed.expand(1, 8, 100, k_len)
+        # QK^T and PV: 2 x (2 Q K Dh) per head, each f32-accurate product as
+        # 3 TF32 products on the tensor cores (faster than f32 on the CUDA
+        # cores); the mask read once (1, 1, Q, K)
+        work.append((nbytes(q, kk, v, got, blocked), 3 * 4 * 8 * 100 * k_len * 32))
+        k3_by_len.append(dict(
+            key_length=k_len, max_abs_err=err,
+            ms=cuda_ms(lambda: k3.masked_cross_attention(q, kk, v, mask)),
+            host_ms=host_ms(lambda: k3.masked_cross_attention(q, kk, v, mask)),
+            plain_ms=cuda_ms(lambda: k3.masked_attention_plain(q, kk, v, mask)),
+            **bound(*work[-1], TF32_OPS_PER_S),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[None], kk[None], v[None], attn_mask=allowed)),
+        ))
+        del q, kk, v, blocked, mask, allowed, got
+    # the record's times are a launch's mean over a clip's mix (3 at each K);
+    # per_clip_ms sums the 9 launches
+    timed = ("ms", "plain_ms", "library_ms")
+    per_clip = {key: 3 * sum(e[key] for e in k3_by_len) for key in timed}
     record["k3_flash"] = dict(
         name="masked_attention_fwd", route="cuda", source="s2d_tpu_torch/csrc/masked_attention.cu",
-        replaces="s2d_tpu/ops/masked_attention_pallas.py:34", max_abs_err=max(k3_errs),
-        ms=cuda_ms(lambda: k3.masked_cross_attention(q, kk, v, mask)),
-        plain_ms=cuda_ms(lambda: k3.masked_attention_plain(q, kk, v, mask)),
-        # QK^T and PV: 2 x (2 Q K Dh) per head; the mask read once (1, 1, Q, K)
-        **bound(nbytes(q, kk, v, got, blocked), 4 * 8 * 100 * k_len * 32),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4_, v4, attn_mask=allowed)),
+        replaces="s2d_tpu/ops/masked_attention_pallas.py:34",
+        max_abs_err=max(e["max_abs_err"] for e in k3_by_len),
+        **{key: per_clip[key] / 9 for key in timed},
+        **bound(*(sum(col) / len(work) for col in zip(*work)), TF32_OPS_PER_S),
+        by_key_length=k3_by_len,
+        per_clip_ms=dict(per_clip, bound_ms=3 * sum(e["bound_ms"] for e in k3_by_len)),
     )
+    for e in k3_by_len:
+        print(f"  K3 (K={e['key_length']}): kernel {e['ms']:.4f} ms (host {e['host_ms']:.4f} ms to "
+              f"enqueue), plain {e['plain_ms']:.4f} ms, "
+              f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), library {e['library_ms']:.4f} ms")
+    print("  K3 a clip (3 launches at each K): " + ", ".join(
+        f"{key} {v:.4f}" for key, v in record["k3_flash"]["per_clip_ms"].items()))
 
     # K4 at N=50 on random IoU / labels: the keep mask must match exactly
     rng = np.random.RandomState(SEED)
@@ -833,16 +907,19 @@ def compare_train_step(dev, batch, class_scale):
         raise AssertionError("; ".join(failures))
 
 
-def profile_train_step(state, step_fn, batch):
-    """One more train step under torch.profiler: device time per stage (the
-    trainer's spans), the top kernels, and the device's idle share."""
+def profile_run(name: str, run) -> None:
+    """`run()` once under torch.profiler: its wall, device time per span (the
+    `record_function` stages), the top kernels, and the device's idle share;
+    the trace goes to build/<name>_trace.json."""
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device=state.optimizer.params[0].device).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step_fn(state, *batch, generator=gen)
+        start = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-    path = Path("build") / "train_step_trace.json"
+        wall = time.perf_counter() - start
+    path = Path("build") / f"{name.replace(' ', '_')}_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -855,19 +932,21 @@ def profile_train_step(state, step_fn, batch):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
     span = end - device[0][0]
-    stages = {}
+    stages, host = {}, {}
     for e in events:
-        if e.get("cat") == "gpu_user_annotation":
-            stages[e["name"]] = stages.get(e["name"], 0.0) + e["dur"] / 1e3
+        if e.get("cat") in ("gpu_user_annotation", "user_annotation"):
+            into = stages if e["cat"] == "gpu_user_annotation" else host
+            into[e["name"]] = into.get(e["name"], 0.0) + e["dur"] / 1e3
     kernels = {}
     for e in events:
         if e.get("cat") == "kernel":
             kernels[e["name"][:80]] = kernels.get(e["name"][:80], 0.0) + e["dur"] / 1e3
-    print(f"profiled train step: device span {span / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms, "
-          f"idle share {1 - busy / span:.3f}")
+    print(f"profiled {name}: wall {wall * 1e3:.2f} ms, device span {span / 1e3:.2f} ms, busy "
+          f"{busy / 1e3:.2f} ms, idle share {1 - busy / span:.3f}")
     print("  device ms per span: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {ms:9.2f} ms  {name}")
+    print("  host ms per span: " + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    for kernel, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.2f} ms  {kernel}")
 
 
 def ablate_checks(dev, record):
@@ -1122,7 +1201,8 @@ def eval_path(dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one train step (device time per stage, idle share)")
+                        help="also profile one inference clip and one train step (device time "
+                             "per stage, idle share)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -1150,7 +1230,7 @@ def main(argv=None) -> int:
     record = {}
     kernel_checks(dev, record)
 
-    # 4. the inference path: 3 requests through the full-width predictor
+    # 4. the inference path: REQUESTS clips through the full-width predictor
     cfg = VideoConfig()
     predictor = VideoPredictor(cfg, seed=SEED, device=dev)
     assert predictor.kernels, "the predictor must run the CUDA kernels on the card"
@@ -1184,7 +1264,10 @@ def main(argv=None) -> int:
     steady = latencies[1:]
     clip_ms = 1e3 * sum(steady) / len(steady)
     print(f"inference path: {clip_ms:.1f} ms per clip after the first "
-          f"({T * 1e3 / clip_ms:.2f} frames/s), first clip {latencies[0] * 1e3:.1f} ms")
+          f"({', '.join(f'{t * 1e3:.1f}' for t in steady)}; {T * 1e3 / clip_ms:.2f} frames/s), "
+          f"first clip {latencies[0] * 1e3:.1f} ms")
+    if args.profile:
+        profile_run("inference clip", lambda: predictor(clips[1], OUT_SIZE))
 
     # 5. the same clip on the plain path, on the card
     compare_paths(cfg, predictor, clips[0], first_out, mods)
@@ -1200,7 +1283,8 @@ def main(argv=None) -> int:
     # 7. K5 against its plain version, on the train step's problems and more
     auction_check(dev, record, problems)
     if args.profile:
-        profile_train_step(state, step_fn, batch)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        profile_run("train step", lambda: step_fn(state, *batch, generator=gen))
     del state, step_fn
 
     # 8. one train step on the plain path, from the same state

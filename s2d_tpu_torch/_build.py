@@ -14,6 +14,7 @@ and returns `cudaGetLastError()` as an int.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,7 +36,7 @@ _F = ctypes.c_float
 # argtypes of every launcher: pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them
 SIGNATURES = {
-    # value, level_info, locations, weights, out, B, S, M, D, Lq, L, P, stream
+    # value, level_info (host), locations, weights, out, B, S, M, D, Lq, L, P, stream
     "s2d_msda_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # value, level_info, locations, weights, grad_out, grad_value, grad_loc,
     # grad_weights, B, S, M, D, Lq, L, P, stream
@@ -43,9 +44,9 @@ SIGNATURES = {
     # benefit, eps list, out, problems, N, Q, phases, max_iters, stream
     "s2d_auction": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, mask, workspace, out, BH, Q, K, Dh, H, mask strides (b, h, q, k),
-    # scale, stream
+    # scale, keys a chunk, stream
     "s2d_masked_attention_fwd": (
-        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _F, _P,
+        _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _F, _I, _P,
     ),
     # iou, labels, keep, N, threshold, stream
     "s2d_greedy_nms": (_P, _P, _P, _I, _F, _P),
@@ -143,3 +144,12 @@ def stream_handle(tensor) -> int:
     import torch
 
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device: K3's wrapper sizes its key
+    chunks by it (K1's launcher asks the runtime itself)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -15,6 +15,8 @@ blocked.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
@@ -22,9 +24,28 @@ from .. import _build
 NEG_INF = -1.0e30
 M_CLAMP = -1.0e4
 HEAD_DIMS = (16, 32)  # head widths the kernel is instantiated for
-KEY_CHUNK = 1024  # keys per CUDA block (kChunk in the source)
+KEY_TILE = 64  # keys a tile of the kernel (kTileK in the source)
+QUERY_ROWS = 128  # query rows a block holds at most (kMaxWarps x 16)
+BLOCKS_PER_SM = 2  # blocks the chunking aims to keep on each SM
 
 LAUNCHES = 0  # kernel launches since the last reset
+
+
+def chunk_keys(bh: int, q_len: int, k_len: int, sms: int) -> int:
+    """Keys a block takes: whole tiles, at least 2, few enough that the grid
+    (query groups x BH x key chunks) keeps BLOCKS_PER_SM blocks on each of
+    `sms` SMs. 2 tiles (128 keys) at the decoder's K = 1920, 15 at 30720."""
+    tiles = max(1, -(-k_len // KEY_TILE))
+    per_row = bh * -(-q_len // QUERY_ROWS)  # blocks for one chunk of every row
+    return KEY_TILE * max(2, -(-tiles * per_row // (BLOCKS_PER_SM * sms)))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(bh: int, q_len: int, k_len: int, dh: int, device) -> tuple[int, tuple[int, ...]]:
+    """(keys a chunk, workspace shape) of a call, kept per shape: per key chunk
+    a partial (accumulators, max, sum) of each query row."""
+    keys = chunk_keys(bh, q_len, k_len, _build.sm_count(device))
+    return keys, (bh, max(1, -(-k_len // keys)), q_len, dh + 2)
 
 
 def _as_4d(blocked: torch.Tensor, bh: int) -> torch.Tensor:
@@ -73,8 +94,8 @@ def masked_cross_attention(
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
     mask4 = _as_4d(blocked, bh)
@@ -83,15 +104,14 @@ def masked_cross_attention(
     if tuple(mask4.shape[2:]) != (q_len, k_len):
         raise ValueError(f"blocked {tuple(blocked.shape)} vs Q={q_len}, K={k_len}")
     out = torch.empty_like(q)
-    # per key chunk of the kernel: partial (accumulators, max, sum)
-    chunks = max(1, -(-k_len // KEY_CHUNK))
-    workspace = torch.empty((bh, chunks, q_len, dh + 2), dtype=torch.float32, device=q.device)
+    keys, parts = _plan(bh, q_len, k_len, dh, q.device)
+    workspace = torch.empty(parts, dtype=torch.float32, device=q.device)
     sb, sh, sq, sk = mask4.stride()
     lib = _build.library()
     rc = lib.s2d_masked_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask4.data_ptr(), workspace.data_ptr(),
         out.data_ptr(),
-        bh, q_len, k_len, dh, mask4.shape[1], sb, sh, sq, sk, dh ** -0.5,
+        bh, q_len, k_len, dh, mask4.shape[1], sb, sh, sq, sk, dh ** -0.5, keys,
         _build.stream_handle(q),
     )
     _build.check(rc, "s2d_masked_attention_fwd")

@@ -26,7 +26,8 @@ BWD_LAUNCHES = 0  # K2 launches since the last reset
 
 @functools.lru_cache(maxsize=16)
 def _level_info(spatial_shapes, device) -> torch.Tensor:
-    """(L, 3) int32 [H, W, start] on the device, kept per shapes."""
+    """(L, 3) int32 [H, W, start] on `device` (K2's on the card, K1's on the
+    host), kept per shapes."""
     rows, start = [], 0
     for h, w in spatial_shapes:
         rows.append([h, w, start])
@@ -58,10 +59,13 @@ def _fwd(value, spatial_shapes, sampling_locations, attention_weights) -> torch.
     global LAUNCHES
     b, s, m, d, lq, num_levels, p = _check(
         value, spatial_shapes, sampling_locations, attention_weights)
+    if d % 4 or value.data_ptr() % 16:
+        raise ValueError(f"K1 takes D % 4 == 0 (got {d}) and a 16-byte aligned value")
     out = torch.empty((b, lq, m * d), dtype=torch.float32, device=value.device)
     lib = _build.library()
+    # the launcher plans its staging and grid from the level shapes (host memory)
     rc = lib.s2d_msda_fwd(
-        value.data_ptr(), _level_info(spatial_shapes, value.device).data_ptr(),
+        value.data_ptr(), _level_info(spatial_shapes, "cpu").data_ptr(),
         sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
         b, s, m, d, lq, num_levels, p, _build.stream_handle(value),
     )

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from s2d_tpu_torch.ops import ms_deform_attn_cuda, msda_ablate_cuda, nms
+from s2d_tpu_torch.ops import masked_attention_cuda, ms_deform_attn_cuda, msda_ablate_cuda, nms
 from s2d_tpu_torch.ops.masked_attention_cuda import (
     masked_attention_plain,
     masked_cross_attention,
@@ -119,6 +119,126 @@ def test_cuda_flash_matches_twin(cuda, dh):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, masked_attention_plain(q, k, v, mask), rtol=1e-4, atol=1e-4)
     assert torch.all(got[:, 3] == 0)
+
+
+def _flash_case(seed, q_len, k_len, dh, bh=4, heads=2):
+    """K3 inputs at a ragged shape: the mask at 50%, shared by the heads;
+    the last fifth of the keys blocked for every query (pad-frame keys) and
+    row 3, where there is one, fully blocked."""
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(bh, n, dh).astype(np.float32) for n in (q_len, k_len, k_len))
+    blocked = rng.rand(bh // heads, 1, q_len, k_len) > 0.5
+    blocked[..., k_len - k_len // 5:] = True
+    blocked[:, :, 3:4] = True
+    return q, k, v, blocked
+
+
+def _check_flash(cuda, q, k, v, mask):
+    """K3 against its plain version at the smoke's tolerance (atol 1e-4, f32),
+    one launch counted, and exact zeros on every fully blocked row."""
+    before = masked_attention_cuda.LAUNCHES
+    got = masked_cross_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert masked_attention_cuda.LAUNCHES == before + 1
+    torch.testing.assert_close(got, masked_attention_plain(q, k, v, mask), rtol=0, atol=1e-4)
+    full = mask.all(-1).reshape(q.shape[0], q.shape[1])
+    assert torch.all(got[full] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32])
+@pytest.mark.parametrize("k_len", [1, 127, 1920, 1921])
+@pytest.mark.parametrize("q_len", [130, 100, 17, 1])
+def test_cuda_flash_ragged_edges(cuda, q_len, k_len, dh):
+    """Q not a multiple of 16 (the rows of a warp) and above the 128 rows of
+    a block, K below one key tile, not a multiple of it, and a multiple of
+    16 (16-byte mask copies); a mask of head stride 0."""
+    q, k, v, blocked = (torch.from_numpy(a).to(cuda) for a in _flash_case(9, q_len, k_len, dh))
+    mask = blocked.expand(q.shape[0] // 2, 2, q_len, k_len)
+    assert mask.stride(1) == 0
+    _check_flash(cuda, q, k, v, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_len", [1920, 7680, 30720])
+def test_cuda_flash_decoder_shapes(cuda, k_len):
+    """The decoder's calls: BH = 8 heads of one clip, Q = 100, Dh = 32, K =
+    8 frames x h x w, the last 2 frames pad frames, the (B, 1, Q, K) mask
+    expanded over the heads, query 5 fully blocked."""
+    q, k, v, blocked = (torch.from_numpy(a).to(cuda)
+                        for a in _flash_case(10, 100, k_len, 32, bh=8, heads=8))
+    blocked[..., 6 * k_len // 8:] = True
+    blocked[:, :, 5] = True
+    _check_flash(cuda, q, k, v, blocked.expand(1, 8, 100, k_len))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["per_head", "key_stride_2", "unaligned_rows"])
+def test_cuda_flash_mask_layouts(cuda, layout):
+    """Masks the kernel reads through their strides: one per head (head
+    stride != 0), every other key of a wider mask (key stride 2), and rows
+    of 130 bytes (no 16-byte copies)."""
+    k_len = 130 if layout == "unaligned_rows" else 640
+    q, k, v, _ = (torch.from_numpy(a).to(cuda) for a in _flash_case(11, 100, k_len, 32))
+    gen = torch.Generator(cuda).manual_seed(11)
+    if layout == "key_stride_2":
+        mask = (torch.rand(2, 2, 100, 2 * k_len, device=cuda, generator=gen) > 0.5)[..., ::2]
+        assert mask.stride(-1) == 2
+    else:
+        mask = torch.rand(2, 2, 100, k_len, device=cuda, generator=gen) > 0.5
+    mask[:, :, 7] = True
+    _check_flash(cuda, q, k, v, mask)
+
+
+# MSDA edge levels: a map of width 1 and one of a single position
+MSDA_THIN = [(7, 1), (4, 12), (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("shapes", [MSDA_SHAPES, MSDA_THIN], ids=["mixed", "thin"])
+def test_cuda_msda_border_and_thin_levels(cuda, shapes, d):
+    """K1 with points outside the map, exactly on its border (0 and 1) and
+    just outside it, on levels of width 1; D = 16 leaves half the lanes of
+    a (query, head) without channels."""
+    value, locs, weights = _msda_inputs(12, d=d, shapes=shapes)
+    locs[:, 5] = 0.0
+    locs[:, 6] = 1.0
+    locs[:, 7] = -0.01
+    locs[:, 8] = 1.01
+    locs[:, 9, :, :, :, 0] = 1.0  # the right border, y inside
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in (value, locs, weights))
+    before = ms_deform_attn_cuda.LAUNCHES
+    got = ms_deform_attn_cuda.ms_deform_attn_cuda(value, shapes, locs, weights)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_cuda.LAUNCHES == before + 1
+    ref = ms_deform_attn_plain(value, shapes, locs, weights)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [8, 6], ids=["inference", "train"])
+def test_cuda_msda_path_shapes(cuda, frames):
+    """K1 at the encoder's shapes: value (frames, 5040, 8, 32) over the 12 x
+    20, 24 x 40 and 48 x 80 levels of a 384 x 640 input (the two small maps
+    staged in shared memory, the large one gathered from global memory),
+    with offsets of 3 pixels' spread: a share of the points lies outside."""
+    levels = [(12, 20), (24, 40), (48, 80)]
+    rng = np.random.RandomState(13)
+    s = sum(h * w for h, w in levels)
+    norm = np.array([[w, h] for h, w in levels], np.float32)
+    ref_pts = rng.rand(frames, s, 1, 3, 1, 2).astype(np.float32)
+    offsets = 3.0 * rng.randn(frames, s, 8, 3, 4, 2).astype(np.float32)
+    locs = ref_pts + offsets / norm[None, None, None, :, None, :]
+    logits = rng.randn(frames, s, 8, 12).astype(np.float32)
+    weights = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).reshape(frames, s, 8, 3, 4)
+    value = rng.randn(frames, s, 8, 32).astype(np.float32)
+    value, locs, weights = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                            for a in (value, locs, weights))
+    got = ms_deform_attn_cuda.ms_deform_attn_cuda(value, levels, locs, weights)
+    torch.cuda.synchronize()
+    ref = ms_deform_attn_plain(value, levels, locs, weights)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda

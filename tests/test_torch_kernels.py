@@ -126,3 +126,79 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.library()
     assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties
+    away from zero, as the kernel's cvt.rna.tf32.f32; still stored as f32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _matmul_tf32(a, b):
+    """One TF32 tensor-core product: operands rounded, products exact, f32 sums."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _matmul_3xtf32(a, b):
+    """K3's split product: x = hi + lo, hi = tf32(x), lo = tf32(x - hi), and
+    a . b = lo.hi + hi.lo + hi.hi with f32 sums (lo.lo dropped)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _attention(q, k, v, blocked, matmul):
+    """K3's function with both products through `matmul`: (logits, out)."""
+    dtype = q.dtype
+    logits = matmul(q, k.transpose(0, 2, 1)) * dtype.type(q.shape[-1] ** -0.5)
+    logits = np.where(blocked, dtype.type(-1e30), logits)
+    m = np.maximum(logits.max(-1, keepdims=True), dtype.type(-1e4))
+    p = np.exp(logits - m)
+    l = p.sum(-1, keepdims=True)
+    return logits, matmul(p, v) / np.where(l > 0, l, dtype.type(1))
+
+
+def test_flash_3xtf32_split_is_f32_accurate():
+    """Why K3 splits its operands: at the decoder's shapes (BH = 8, Q = 100,
+    Dh = 32, K = 1920, normal inputs, the mask at 50%), single-pass TF32 puts
+    the logits more than the smoke's atol 1e-4 off the float64 result; the
+    three-term split keeps the output within 1e-5 of it."""
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.randn(8, n, 32).astype(np.float32) for n in (100, 1920, 1920))
+    blocked = rng.rand(8, 100, 1920) > 0.5
+    logits64, out64 = _attention(*(x.astype(np.float64) for x in (q, k, v)), blocked, np.matmul)
+    logits1, _ = _attention(q, k, v, blocked, _matmul_tf32)
+    logits3, out3 = _attention(q, k, v, blocked, _matmul_3xtf32)
+    open_ = ~blocked
+    assert np.abs(logits1 - logits64)[open_].max() > 1e-4
+    assert np.abs(logits3 - logits64)[open_].max() < 1e-5
+    assert np.abs(out3 - out64).max() < 1e-5
+
+
+def test_tf32_rounding_emulation():
+    x = np.array([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-11, -(1.0 + 2**-11), 1.0 + 2**-12],
+                 np.float32)
+    # ties go away from zero; below half an ulp (2^-10) rounds down
+    np.testing.assert_array_equal(
+        _tf32(x), np.array([1.0, 1.0 + 2**-10, 1.0 + 2**-9, -(1.0 + 2**-10), 1.0], np.float32))
+
+
+@pytest.mark.parametrize("k_len, keys", [(1920, 128), (7680, 256), (30720, 960), (1, 128)])
+def test_flash_key_chunks_cover_the_sms(k_len, keys):
+    """K3's chunk of keys a block at the decoder's shapes on 132 SMs: whole
+    64-key tiles, at least 2, and at most 2 blocks an SM, at least 1 where K
+    allows it."""
+    assert masked_attention_cuda.chunk_keys(8, 100, k_len, 132) == keys
+    blocks = 8 * -(-k_len // keys)
+    assert blocks <= 2 * 132 and (keys == 128 or blocks >= 132)
+
+
+@pytest.mark.parametrize("bh, q_len, k_len, keys", [(8, 130, 30720, 1920), (1, 17, 1921, 128)])
+def test_flash_key_chunks_other_rows(bh, q_len, k_len, keys):
+    """K3's chunk where the rows take two query blocks (Q = 130) or one head
+    holds few tiles: the grid stays within 2 blocks an SM of 132, and above
+    1 an SM where K allows it."""
+    assert masked_attention_cuda.chunk_keys(bh, q_len, k_len, 132) == keys
+    blocks = bh * -(-q_len // masked_attention_cuda.QUERY_ROWS) * -(-k_len // keys)
+    assert blocks <= 2 * 132 and (keys == 128 or blocks >= 132)
