@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (s2d_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --compare PARENT [--profile]
 
 1. prints the card (nvidia-smi name, power limit) and turns TF32 off for
    cuDNN convolutions and matmuls (full f32, as the JAX reference);
@@ -45,10 +46,14 @@
    the teacher equal to the EMA of the student; prints step times, peak
    device memory and the time of each stage;
 7. holds K5 (the batched auction) against its plain version on the card:
-   identical assignments on the train step's own 40 problems, on random
-   problems with invalid columns (25 supervised slots padded to 100, and
-   alone: fewer slots than queries, so the reverse rounds run) and on
-   quantized near-ties; times both, and the host scipy solver beside;
+   identical assignments on the train step's own 40 problems, on a fixed
+   seeded stand-in for them (`fixed_auction_problems`: the step's problems
+   follow its K1 rounding, the stand-in is the same in every checkout), on
+   random problems with invalid columns (25 supervised slots padded to 100,
+   and alone: fewer slots than queries, so the reverse rounds run) and on
+   quantized near-ties; times both, and the host scipy solver beside, and
+   on the step's problems and the stand-in the device time a round of the
+   slowest problem (each problem has its own block);
 8. runs one train step on the plain path (plain MSDA with autograd, plain
    auction) from the same seeded state and the same random draws, and holds
    its losses to the kernel step's at rtol 1e-3 / atol 2e-3 with the kernel
@@ -63,9 +68,11 @@
 9. holds K6 (the MSDA separable-sampling ablation, four variants) against
    its plain version at the ablation tool's default shapes (empty and
    noconstruct exactly, dotonly and full at rtol 1e-5 / atol 1e-6: both
-   round each product and sum on its own) and times both; then drives K6's
-   own path, the ablation tool (`s2d_tpu_torch.tools.bench_pallas_ablate`)
-   at its defaults, and checks its launches per variant;
+   round each product and sum on its own) and times both, and `empty`
+   against `torch.zeros` of its output in turns (INTERLEAVED_RUNS each);
+   then drives K6's own path, the ablation tool
+   (`s2d_tpu_torch.tools.bench_pallas_ablate`) at its defaults, and checks
+   its launches per variant;
 10. drives the --eval-only path: `evaluate_dataset` with the inference
    config (configs/s2d_inference_kd_video_mask2former_R50_cls_agnostic.yaml)
    at full width, seeded random weights, over a synthetic YTVIS set written
@@ -83,7 +90,11 @@ With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
 PYTHONPATH set to it), this file times and checks that checkout's kernels
-and paths: the way to compare two commits in one call.
+and paths. --compare PARENT does that for two commits in one call: it
+copies itself into the checkout PARENT (e.g. `git archive <commit>`
+unpacked under build/), runs there and here in turns parent, change,
+change, parent, each in its own process with its log under build/compare/,
+and prints each run's key lines and the kernels' times side by side.
 
 Any failure raises (exit code != 0). The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -94,6 +105,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -115,6 +129,7 @@ EVAL_DATASET = "chip_smoke_ytvis"
 METRIC_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100")
 TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W, TRAIN_SLOTS, TRAIN_STEPS = 2, 3, 368, 640, 25, 3
 OFFSET_STD = 0.01  # the encoder's sampling-offset weights (see `new_train_state`)
+INTERLEAVED_RUNS = 5  # K6 empty and torch.zeros, timed in turns
 TRACKS = 25  # NMS survivors `spread_queries` aims the eval weights at
 MIN_TRACKS = 10  # NMS survivors the eval phase needs in each video
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
@@ -530,9 +545,57 @@ def kernel_checks(dev, record):
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
 
 
+def fixed_auction_problems(dev):
+    """A seeded stand-in for the train step's 40 auction problems (2 criteria
+    x 10 decoder layers x B=2), the same in every checkout: the step's own
+    problems follow its K1 rounding, so two checkouts would time K5 on
+    different problems. 100 queries x 100 target slots; the costs are the
+    matcher's (5 BCE + 5 dice, class weight 0) on 4096 sampled points, from
+    mask logits that share one random field across the queries plus a
+    per-query part, as a randomly initialized decoder's do:
+      * 20 supervised problems: 25 slots of random blobs, about 80% valid,
+        padded to 100 with invalid columns (the criterion's padding);
+      * 20 distillation problems: 100 slots, about 60% valid, each slot the
+        binarized mask of a query (at step 0 the teacher is the student)
+        with a little noise (the student's dropout)."""
+    from s2d_tpu_torch.losses.matcher import batch_dice_cost, batch_sigmoid_ce_cost
+
+    rng = np.random.RandomState(SEED + 5)
+    q, n, pts = 100, 100, 4096
+    costs, valids = [], []
+    for k in range(40):
+        shared = 2.0 * rng.randn(1, pts)
+        logits = (shared + 0.3 * rng.randn(q, pts)).astype(np.float32)
+        if k < 20:
+            blobs = rng.randn(TRAIN_SLOTS, pts) + rng.uniform(0.2, 1.0, (TRAIN_SLOTS, 1)) * shared > 1.0
+            targets = np.concatenate([blobs, np.zeros((n - TRAIN_SLOTS, pts), bool)])
+            valid = np.zeros(n, bool)
+            valid[:TRAIN_SLOTS] = rng.rand(TRAIN_SLOTS) > 0.2
+        else:
+            targets = logits[rng.permutation(q)[:n]] + 0.1 * rng.randn(n, pts) > 0.0
+            valid = rng.rand(n) > 0.4
+        lt = torch.from_numpy(logits).to(dev)
+        tt = torch.from_numpy(targets.astype(np.float32)).to(dev)
+        costs.append(5.0 * batch_sigmoid_ce_cost(lt, tt) + 5.0 * batch_dice_cost(lt, tt))
+        valids.append(valid)
+    return torch.stack(costs).contiguous(), torch.from_numpy(np.stack(valids)).to(dev)
+
+
+def cost_stats(cost, valid) -> str:
+    """The spread of the valid costs: over the whole set, and across the
+    queries of one target slot (what an assignment chooses between)."""
+    c = cost.float()
+    v = valid[:, None, :].expand_as(c)
+    per_slot = c.std(dim=1)[valid]
+    return (f"valid costs mean {c[v].mean().item():.4f}, std {c[v].std().item():.4f}, "
+            f"std across the queries of a slot {per_slot.mean().item():.4f}")
+
+
 def auction_check(dev, record, main_problem):
     """K5 against the plain auction: identical assignments. The main path's
-    own 40 problems are timed."""
+    own 40 problems and the fixed seeded set are timed, each with the device
+    time a round of its slowest problem (each problem has its own block, so
+    the kernel lasts as long as that problem's rounds)."""
     from s2d_tpu_torch.losses.matcher import hungarian_assign_scipy
     from s2d_tpu_torch.ops import auction, auction_cuda
 
@@ -545,8 +608,10 @@ def auction_check(dev, record, main_problem):
     kd_cost = (rng.rand(half, q, n) * 10).astype(np.float32)
     kd_valid = rng.rand(half, n) > 0.25
     ties = (rng.randint(0, 5, (2 * half, q, n)) / 5 + rng.rand(2 * half, q, n) * 1e-5).astype(np.float32)
+    step_set, fixed_set = "the train step's own problems", "the fixed seeded set at the step's shapes"
     cases = {
-        "the train step's own problems": main_problem,
+        step_set: main_problem,
+        fixed_set: fixed_auction_problems(dev),
         "25 supervised slots padded to 100 + 100 distillation slots, invalid columns": (
             torch.from_numpy(np.concatenate([sup_cost, kd_cost])).to(dev),
             torch.from_numpy(np.concatenate([sup_valid, kd_valid])).to(dev)),
@@ -557,7 +622,7 @@ def auction_check(dev, record, main_problem):
             torch.from_numpy(np.ascontiguousarray(sup_cost[:, :, :TRAIN_SLOTS])).to(dev),
             torch.from_numpy(np.ascontiguousarray(sup_valid[:, :TRAIN_SLOTS])).to(dev)),
     }
-    main = None
+    timed = {}
     for name, (cost, valid) in cases.items():
         ben = auction.build_benefits(cost, valid)
         eps = auction.eps_schedule(cost.shape[2], False)
@@ -570,35 +635,58 @@ def auction_check(dev, record, main_problem):
                                  f"{int((got != ref).sum())} of {got.numel()}")
         print(f"  K5 vs plain ({name}): {ben.shape[0]} problems of {ben.shape[1]} x "
               f"{ben.shape[2]}, assignments identical; active (problem, round) pairs {rounds}")
-        if main is None:
-            main = (cost, ben, eps, got, rounds)
-    cost, ben, eps, got, rounds = main
+        if name in (step_set, fixed_set):
+            print(f"    {cost_stats(cost, valid)}")
+            timed[name] = (cost, ben, eps, got, rounds)
+
+    def slowest(ms, rounds):
+        """The slowest problem's rounds and the kernel's device us a round
+        of it (None where this checkout's plain auction does not count
+        them per problem)."""
+        slow = rounds.get("slowest")
+        per_round = None if slow is None else 1e3 * ms / (slow["forward"] + slow["reverse"])
+        return dict(slowest=slow, us_per_round=per_round)
+
+    cost, ben, eps, got, rounds = timed[step_set]
+    _, fben, _, _, frounds = timed[fixed_set]
     hungarian_assign_scipy(cost[:1])  # imports scipy
     start = time.perf_counter()
     hungarian_assign_scipy(cost)
     scipy_ms = (time.perf_counter() - start) * 1e3
     b, n, q = ben.shape
-    # the work the assignment needs, not the kernel's dense scans: a bid of
-    # an unassigned person reads its Q net values (a subtract, and compares
-    # for w1/i1 and w2) and is settled at its object (1); an unowned priced
-    # object in a reverse round reads the N person values (a subtract, and
-    # compares for beta/i* and gamma) and is settled (1), after a profit per
-    # person (1) in each active (problem, reverse round); a phase's partial
-    # reset takes each person's best net value (2 per benefit)
-    ops = ((3 * q + 1) * rounds["bidders"] + (3 * n + 1) * rounds["sellers"]
-           + n * rounds["reverse"] + 2 * b * len(eps) * n * q)
+
+    def ops(rounds):
+        """The work the assignment needs, not the kernel's dense scans: a
+        bid of an unassigned person reads its Q net values (a subtract, and
+        compares for w1/i1 and w2) and is settled at its object (1); an
+        unowned priced object in a reverse round reads the N person values
+        (a subtract, and compares for beta/i* and gamma) and is settled (1),
+        after a profit per person (1) in each active (problem, reverse
+        round); a phase's partial reset takes each person's best net value
+        (2 per benefit)."""
+        return ((3 * q + 1) * rounds["bidders"] + (3 * n + 1) * rounds["sellers"]
+                + n * rounds["reverse"] + 2 * b * len(eps) * n * q)
+
     eps_t = torch.tensor(eps, dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: auction_cuda.auction_asym_cuda(ben, eps))
+    fixed_ms = cuda_ms(lambda: auction_cuda.auction_asym_cuda(fben, eps))
     record["k5_auction"] = dict(
         name="batched_auction", route="cuda", source="s2d_tpu_torch/csrc/auction.cu",
-        replaces="s2d_tpu/ops/auction_pallas.py:48", max_abs_err=0.0,
-        ms=cuda_ms(lambda: auction_cuda.auction_asym_cuda(ben, eps)),
+        replaces="s2d_tpu/ops/auction_pallas.py:48", max_abs_err=0.0, ms=ms,
         plain_ms=cuda_ms(lambda: auction.auction_asym_plain(ben, eps), iters=3),
-        **bound(nbytes(ben, eps_t, got), ops), library_ms=None,
+        **bound(nbytes(ben, eps_t, got), ops(rounds)), library_ms=None,
+        **slowest(ms, rounds),
+        fixed_set=dict(ms=fixed_ms, rounds={k: v for k, v in frounds.items() if k != "slowest"},
+                       **bound(nbytes(fben, eps_t, got), ops(frounds)), **slowest(fixed_ms, frounds)),
     )
     r = record["k5_auction"]
     print(f"  K5: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-          f"({r['bound_by']}; {ops:.4g} operations, {nbytes(ben, eps_t, got)} bytes); host scipy LSA "
+          f"({r['bound_by']}; {ops(rounds):.4g} operations, {nbytes(ben, eps_t, got)} bytes); host scipy LSA "
           f"of the same {b} problems {scipy_ms:.2f} ms (not asserted)")
+    for what, e in (("the step's problems", r), ("the fixed set", r["fixed_set"])):
+        per_round = "n/a" if e["us_per_round"] is None else f"{e['us_per_round']:.3f}"
+        print(f"  K5 on {what}: {e['ms']:.4f} ms; slowest problem {e['slowest']}: {per_round} us "
+              f"a round")
 
 
 def train_batch(cfg, dev):
@@ -990,6 +1078,17 @@ def ablate_checks(dev, record):
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"  K6 {variant}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    # `empty` against its library call in turns: does the gap hold past the
+    # runs' spread?
+    kernel_runs, zeros_runs = [], []
+    for _ in range(INTERLEAVED_RUNS):
+        kernel_runs.append(cuda_ms(lambda: tool.call(msda_ablate, "empty", inputs, args)))
+        zeros_runs.append(cuda_ms(library["empty"]))
+    record["k6_empty"]["interleaved"] = dict(ms=kernel_runs, library_ms=zeros_runs)
+    held = min(kernel_runs) > max(zeros_runs)
+    print(f"  K6 empty vs torch.zeros in turns: kernel {', '.join(f'{t:.4f}' for t in kernel_runs)} "
+          f"ms; torch.zeros {', '.join(f'{t:.4f}' for t in zeros_runs)} ms: the gap "
+          f"{'holds past' if held else 'does not hold past'} the runs' spread")
 
 
 def ablate_path():
@@ -1198,14 +1297,72 @@ def eval_path(dev):
     return launches
 
 
+COMPARE_ORDER = ("parent", "change", "change", "parent")
+# the lines of a run's log that the comparison prints under the run's header
+COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per span",
+                 "  K5 on", "  K5:", "  K6 empty vs", "  ms_deform_attn_bwd:", "  batched_auction:",
+                 "  ms_deform_attn_fwd:", "eval path:", "K2 d", "build:")
+
+
+def compare_checkouts(parent: Path, profile: bool) -> None:
+    """Runs this script in the checkout `parent` (this file copied there
+    first, so both sides run the same phases on the same inputs) and in
+    this checkout, in turns parent, change, change, parent, each in its own
+    process with its log under build/compare/; prints each run's key lines
+    under its header, then the kernels' device times and the train step
+    side by side."""
+    here = Path(__file__).resolve().parent
+    parent = parent.resolve()
+    shutil.copyfile(Path(__file__).resolve(), parent / "chip_smoke.py")
+    logs = here / "build" / "compare"
+    logs.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for i, side in enumerate(COMPARE_ORDER):
+        root = parent if side == "parent" else here
+        log = logs / f"compare_{i}_{side}.log"
+        cmd = [sys.executable, "chip_smoke.py", *(["--profile"] if profile else [])]
+        with open(log, "w") as out:
+            rc = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+                                stdout=out, stderr=subprocess.STDOUT).returncode
+        lines = log.read_text().splitlines()
+        print(f"== run {i}: {side} ({root}), exit {rc}, log {log.relative_to(here)}")
+        if rc != 0:
+            print("\n".join(lines[-40:]))
+            raise AssertionError(f"run {i} ({side}) exited {rc}")
+        print("\n".join(line for line in lines if line.startswith(COMPARE_LINES)))
+        step = re.search(r"train path: ([0-9.]+) ms per step", "\n".join(lines))
+        runs.append((side, {k["name"]: k for k in json.loads(lines[-2])["kernels"]},
+                     float(step.group(1))))
+    print("== side by side (device ms a call; " + ", ".join(side for side, _, _ in runs) + ")")
+    for name in runs[0][1]:
+        print(f"  {name}: " + ", ".join(f"{k[name]['ms']:.4f}" for _, k, _ in runs))
+    print("  train step ms: " + ", ".join(f"{ms:.1f}" for _, _, ms in runs))
+    counted = [k["batched_auction"]["fixed_set"]["slowest"] for _, k, _ in runs]
+    slow = next((c for c in counted if c), None)
+    fixed = [k["batched_auction"]["fixed_set"]["ms"] for _, k, _ in runs]
+    print(f"  K5 on the fixed set: {', '.join(f'{ms:.4f}' for ms in fixed)} ms")
+    if slow:
+        # the same problems and identical assignments: the same rounds on
+        # both sides, as counted by the side whose plain auction counts them
+        per_round = ", ".join(f"{1e3 * ms / (slow['forward'] + slow['reverse']):.3f}" for ms in fixed)
+        print(f"  K5 us a round of the fixed set's slowest problem {slow}: {per_round}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one inference clip and one train step (device time "
                              "per stage, idle share)")
+    parser.add_argument("--compare", type=Path, metavar="PARENT",
+                        help="instead: run this script in the checkout PARENT and in this one, "
+                             "in turns parent, change, change, parent, and compare them")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
+    if args.compare:
+        print(card_line())
+        compare_checkouts(args.compare, args.profile)
+        return 0
     from s2d_tpu_torch import _build
     from s2d_tpu_torch.config import VideoConfig, load_config_tree
     from s2d_tpu_torch.demo_video import VideoPredictor, set_full_f32

@@ -84,12 +84,28 @@ def auction_asym_plain(benefit: torch.Tensor, eps_list: Sequence[float],
     needed, for a bound: the (problem, round) pairs in which a problem was
     still active ("forward", "reverse"), the bids of unassigned persons
     summed over the forward rounds ("bidders") and the unowned priced
-    objects summed over the reverse rounds ("sellers")."""
+    objects summed over the reverse rounds ("sellers"); and the problem with
+    the most rounds, the first among equals, with its forward and reverse
+    rounds over all phases ("slowest": problem, forward, reverse): a kernel
+    that gives each problem its own block lasts as long as that problem."""
     b, n, q = benefit.shape
-    if rounds is not None:
-        rounds.update(forward=0, reverse=0, bidders=0, sellers=0)
     dev = benefit.device
+    fwd_rounds = torch.zeros(b, dtype=torch.int64, device=dev)
+    rev_rounds = torch.zeros(b, dtype=torch.int64, device=dev)
+
+    def count():
+        if rounds is None:
+            return
+        slowest = dict(problem=0, forward=0, reverse=0)
+        if b:
+            k = int((fwd_rounds + rev_rounds).argmax())
+            slowest = dict(problem=k, forward=int(fwd_rounds[k]), reverse=int(rev_rounds[k]))
+        rounds.update(forward=int(fwd_rounds.sum()), reverse=int(rev_rounds.sum()),
+                      bidders=bidders, sellers=sellers, slowest=slowest)
+
+    bidders = sellers = 0
     if q == 1:
+        count()
         return torch.zeros((b, n), dtype=torch.int32, device=dev)
     benefit = benefit.float()
     pid = torch.arange(n, device=dev)
@@ -115,8 +131,8 @@ def auction_asym_plain(benefit: torch.Tensor, eps_list: Sequence[float],
             if not bool(unassigned.any()):
                 break
             if rounds is not None:
-                rounds["forward"] += int(unassigned.any(dim=1).sum())
-                rounds["bidders"] += int(unassigned.sum())
+                fwd_rounds += unassigned.any(dim=1)
+                bidders += int(unassigned.sum())
             net = benefit - prices[:, None, :]
             w1 = net.amax(dim=2)
             i1 = torch.where(net >= w1[:, :, None], oid, q).amin(dim=2)
@@ -139,8 +155,8 @@ def auction_asym_plain(benefit: torch.Tensor, eps_list: Sequence[float],
             if not bool(bidder.any()):
                 break
             if rounds is not None:
-                rounds["reverse"] += int(bidder.any(dim=1).sum())
-                rounds["sellers"] += int(bidder.sum())
+                rev_rounds += bidder.any(dim=1)
+                sellers += int(bidder.sum())
             pobj = _person_to_obj(owner, n)
             net = benefit - prices[:, None, :]
             own = net.gather(2, pobj.clamp(min=0)[:, :, None])[:, :, 0]
@@ -167,6 +183,7 @@ def auction_asym_plain(benefit: torch.Tensor, eps_list: Sequence[float],
             new_owner = torch.where(won, pid[None, :, None], n).amin(dim=1)
             owner = torch.where(won_any, new_owner, owner)
             prices = torch.where(won_any, torch.maximum(zero, gamma - eps), prices)
+    count()
     return _person_to_obj(owner, n).to(torch.int32)
 
 

@@ -2,9 +2,11 @@
 
 `csrc/auction.cu` replaces the TPU kernel
 `s2d_tpu/ops/auction_pallas.py:_batched_auction_asym_kernel` (K5): one block
-per problem, the problem in shared memory, bit-identical assignments to
-`auction.auction_asym_plain` (its plain version, which a CPU tensor takes).
-A CUDA tensor launches the kernel or raises.
+per problem, the problem in shared memory, compacted lists of the active
+persons and objects, each round's bids resolved by a 64-bit key atomicMax;
+bit-identical assignments to `auction.auction_asym_plain` (its plain
+version, which a CPU tensor takes). A CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 

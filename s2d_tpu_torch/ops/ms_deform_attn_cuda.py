@@ -25,14 +25,14 @@ BWD_LAUNCHES = 0  # K2 launches since the last reset
 
 
 @functools.lru_cache(maxsize=16)
-def _level_info(spatial_shapes, device) -> torch.Tensor:
-    """(L, 3) int32 [H, W, start] on `device` (K2's on the card, K1's on the
-    host), kept per shapes."""
+def _level_info(spatial_shapes) -> torch.Tensor:
+    """(L, 3) int32 [H, W, start] in host memory, where K1's and K2's
+    launchers read it, kept per shapes."""
     rows, start = [], 0
     for h, w in spatial_shapes:
         rows.append([h, w, start])
         start += h * w
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+    return torch.tensor(rows, dtype=torch.int32)
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights, *extra):
@@ -65,7 +65,7 @@ def _fwd(value, spatial_shapes, sampling_locations, attention_weights) -> torch.
     lib = _build.library()
     # the launcher plans its staging and grid from the level shapes (host memory)
     rc = lib.s2d_msda_fwd(
-        value.data_ptr(), _level_info(spatial_shapes, "cpu").data_ptr(),
+        value.data_ptr(), _level_info(spatial_shapes).data_ptr(),
         sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
         b, s, m, d, lq, num_levels, p, _build.stream_handle(value),
     )
@@ -92,12 +92,16 @@ def ms_deform_attn_bwd_cuda(
         value, spatial_shapes, sampling_locations, attention_weights, ("grad_out", grad_out))
     if tuple(grad_out.shape) != (b, lq, m * d):
         raise ValueError(f"grad_out {tuple(grad_out.shape)}")
+    if d % 4 or value.data_ptr() % 16 or grad_out.data_ptr() % 16:
+        raise ValueError(f"K2 takes D % 4 == 0 (got {d}) and a 16-byte aligned value and grad_out")
     grad_value = torch.zeros_like(value)
     grad_loc = torch.empty_like(sampling_locations)
     grad_attn = torch.empty_like(attention_weights)
     lib = _build.library()
+    # the launcher plans its accumulators, staging and grid from the level
+    # shapes (host memory)
     rc = lib.s2d_msda_bwd(
-        value.data_ptr(), _level_info(spatial_shapes, value.device).data_ptr(),
+        value.data_ptr(), _level_info(spatial_shapes).data_ptr(),
         sampling_locations.data_ptr(), attention_weights.data_ptr(), grad_out.data_ptr(),
         grad_value.data_ptr(), grad_loc.data_ptr(), grad_attn.data_ptr(),
         b, s, m, d, lq, num_levels, p, _build.stream_handle(value),

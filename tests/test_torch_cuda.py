@@ -263,6 +263,126 @@ def test_cuda_msda_backward_matches_twin(cuda):
         torch.testing.assert_close(leaf.grad, r, rtol=1e-4, atol=1e-4)
 
 
+def _msda_bwd_check(cuda, value, shapes, locs, weights, grad_out, scaled_atol=False):
+    """K2 against the plain backward, one launch counted. At rtol/atol 1e-4;
+    with `scaled_atol`, d locations and d weights at chip_smoke's gate, atol
+    1e-4 + 2e-5 max|d| (rtol 0): at maps of 80 or 160 columns each version
+    rounds the sampling coordinate in f32 in its own way, up to 1e-5 px
+    apart, and that moves a location gradient of ~1e3 by ~1e-2."""
+    before = ms_deform_attn_cuda.BWD_LAUNCHES
+    got = ms_deform_attn_cuda.ms_deform_attn_bwd_cuda(value, shapes, locs, weights, grad_out)
+    torch.cuda.synchronize()
+    assert ms_deform_attn_cuda.BWD_LAUNCHES == before + 1
+    ref = ms_deform_attn_cuda.ms_deform_attn_bwd_plain(value, shapes, locs, weights, grad_out)
+    for what, g, r in zip(("value", "locations", "weights"), got, ref):
+        if scaled_atol:
+            atol = 1e-4 if what == "value" else 1e-4 + 2e-5 * r.abs().max().item()
+            torch.testing.assert_close(g, r, rtol=0, atol=atol, msg=f"d {what}")
+        else:
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4, msg=f"d {what}")
+    return got
+
+
+def _grad_out(cuda, value, lq, seed=0):
+    return torch.randn(value.shape[0], lq, value.shape[2] * value.shape[3], device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(seed))
+
+
+def _off_kinks(locs, shapes):
+    """Moves each sampling coordinate (loc * size - 0.5) within 1e-3 of an
+    integer by 2e-3 px: bilinear sampling's location gradient is two-valued
+    there, and K2 and `F.grid_sample` may take different sides."""
+    scale = np.array([[w, h] for h, w in shapes], np.float32)[None, None, None, :, None, :]
+    coord = locs * scale - 0.5
+    near = np.abs(coord - np.round(coord)) < 1e-3
+    return np.where(near, locs + np.float32(2e-3) / scale, locs).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("shapes", [MSDA_SHAPES, MSDA_THIN], ids=["mixed", "thin"])
+def test_cuda_msda_backward_border_and_thin_levels(cuda, shapes, d):
+    """K2 with points outside the map, exactly on its border (0 and 1) and
+    just outside it, on levels of width 1 and of one position; D = 16
+    leaves half the lanes of a (query, head) without channels. Every level
+    fits in shared memory here: d value sums in the block's accumulators."""
+    value, locs, weights = _msda_inputs(12, d=d, shapes=shapes)
+    locs[:, 5] = 0.0
+    locs[:, 6] = 1.0
+    locs[:, 7] = -0.01
+    locs[:, 8] = 1.01
+    locs[:, 9, :, :, :, 0] = 1.0
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in (value, locs, weights))
+    _msda_bwd_check(cuda, value, shapes, locs, weights, _grad_out(cuda, value, locs.shape[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [8, 6], ids=["inference", "train"])
+def test_cuda_msda_backward_path_shapes(cuda, frames):
+    """K2 at the encoder's shapes, value (frames, 5040, 8, 32) over the 12 x
+    20, 24 x 40 and 48 x 80 levels: the two small levels' d value in shared
+    memory, the large one's by 16-byte atomics into grad_value; offsets of 3
+    pixels' spread, points off the bilinear kinks."""
+    levels = [(12, 20), (24, 40), (48, 80)]
+    rng = np.random.RandomState(14)
+    s = sum(h * w for h, w in levels)
+    norm = np.array([[w, h] for h, w in levels], np.float32)
+    ref_pts = rng.rand(frames, s, 1, 3, 1, 2).astype(np.float32)
+    offsets = 3.0 * rng.randn(frames, s, 8, 3, 4, 2).astype(np.float32)
+    locs = _off_kinks(ref_pts + offsets / norm[None, None, None, :, None, :], levels)
+    logits = rng.randn(frames, s, 8, 12).astype(np.float32)
+    weights = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).reshape(frames, s, 8, 3, 4)
+    value = rng.randn(frames, s, 8, 32).astype(np.float32)
+    value, locs, weights = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                            for a in (value, locs, weights))
+    _msda_bwd_check(cuda, value, levels, locs, weights, _grad_out(cuda, value, s, 1),
+                    scaled_atol=True)
+
+
+@pytest.mark.cuda
+def test_cuda_msda_backward_level_too_large_to_stage(cuda):
+    """A 96 x 160 level (1.9 MB a head at D = 32) beside a 12 x 20 one: no
+    shared-memory accumulator or copy holds it, so its d value goes straight
+    into grad_value."""
+    shapes = [(12, 20), (96, 160)]
+    value, locs, weights = _msda_inputs(15, b=2, lq=300, m=4, d=32, shapes=shapes)
+    locs = _off_kinks(locs, shapes)
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in (value, locs, weights))
+    _msda_bwd_check(cuda, value, shapes, locs, weights, _grad_out(cuda, value, 300, 2),
+                    scaled_atol=True)
+
+
+@pytest.mark.cuda
+def test_cuda_msda_backward_every_corner_outside(cuda):
+    """Points whose four corners all lie outside their maps: zero d value,
+    zero location and weight gradients, as the plain version."""
+    value, locs, weights = _msda_inputs(16, d=32)
+    locs[..., 0] = np.where(np.arange(locs.shape[1])[None, :, None, None, None] % 2, 3.0, -2.0)
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in (value, locs, weights))
+    got = _msda_bwd_check(cuda, value, MSDA_SHAPES, locs, weights,
+                          _grad_out(cuda, value, locs.shape[1], 3))
+    for g in got:
+        assert torch.all(g == 0)
+
+
+@pytest.mark.cuda
+def test_cuda_msda_autograd_launches(cuda):
+    """The differentiable wrapper: a forward and a backward launch K1 once
+    and K2 once, and the leaves' gradients are K2's."""
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in _msda_inputs(17, d=32))
+    grad_out = _grad_out(cuda, value, locs.shape[1], 4)
+    before = (ms_deform_attn_cuda.LAUNCHES, ms_deform_attn_cuda.BWD_LAUNCHES)
+    leaves = [t.clone().requires_grad_(True) for t in (value, locs, weights)]
+    out = ms_deform_attn_cuda.ms_deform_attn_cuda(leaves[0], MSDA_SHAPES, leaves[1], leaves[2])
+    out.backward(grad_out)
+    torch.cuda.synchronize()
+    assert (ms_deform_attn_cuda.LAUNCHES, ms_deform_attn_cuda.BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    ref = ms_deform_attn_cuda.ms_deform_attn_bwd_plain(value, MSDA_SHAPES, locs, weights, grad_out)
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, r, rtol=1e-4, atol=1e-4)
+
+
 def auction_cases(seed):
     """(cost (B, Q, N), valid (B, N)) problems: random, quantized near-ties,
     invalid columns, N < Q and N == Q."""
@@ -289,6 +409,57 @@ def test_cuda_auction_matches_twin(cuda):
             assert auction_cuda.LAUNCHES == before + 1
             ref = auction.auction_asym_plain(ben, eps_list)
             assert torch.equal(got, ref), (cost.shape, exact)
+
+
+def _k5_case(name, exact):
+    """(benefit (B, N, Q) f32, eps list, max_iters) for a K5 edge case."""
+    from s2d_tpu_torch.ops import auction
+
+    rng = np.random.RandomState(21)
+    max_iters = auction.MAX_ITERS
+    if name.startswith("max_iters"):
+        # rounds cut short: both versions stop at the same round with the
+        # same partial assignment (-1 for the persons left unassigned)
+        max_iters = int(name.split("_")[-1])
+        cost, valid = rng.rand(4, 100, 100).astype(np.float32) * 10, rng.rand(4, 100) > 0.3
+    elif name == "one_person":
+        cost, valid = rng.rand(3, 100, 1).astype(np.float32), np.ones((3, 1), bool)
+    elif name == "square_150":
+        cost, valid = rng.rand(2, 150, 150).astype(np.float32) * 10, np.ones((2, 150), bool)
+    elif name == "all_equal":
+        cost, valid = np.full((2, 60, 40), 3.0, np.float32), np.ones((2, 40), bool)
+    else:  # negative and zero benefits, given directly
+        ben = -rng.randint(0, 40, (3, 30, 50)).astype(np.float32)
+        ben[:, :, 7] = 0.0
+        ben[1] = -0.0
+        n = ben.shape[1]
+        return torch.from_numpy(ben), auction.eps_schedule(n, exact), max_iters
+    ben = auction.build_benefits(torch.from_numpy(cost), torch.from_numpy(valid))
+    return ben, auction.eps_schedule(cost.shape[2], exact), max_iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["eps_final_4", "exact"])
+@pytest.mark.parametrize("name", ["max_iters_1", "max_iters_3", "max_iters_12", "one_person",
+                                  "square_150", "all_equal", "negative_and_zero"])
+def test_cuda_auction_edge_cases(cuda, name, exact):
+    """K5 bit-identical to the plain auction at the edges of its design:
+    the round guard (max_iters) cutting the forward or reverse loop, one
+    person, N = Q = 150, all-equal benefits (every bid a tie), negative and
+    zero benefits (-0.0 among them), under both epsilon schedules
+    (eps_final 4, and the exact 1 / (N + 1))."""
+    from s2d_tpu_torch.ops import auction, auction_cuda
+
+    ben, eps_list, max_iters = _k5_case(name, exact)
+    ben = ben.to(cuda)
+    before = auction_cuda.LAUNCHES
+    got = auction_cuda.auction_asym_cuda(ben, eps_list, max_iters)
+    torch.cuda.synchronize()
+    assert auction_cuda.LAUNCHES == before + 1
+    ref = auction.auction_asym_plain(ben, eps_list, max_iters)
+    assert torch.equal(got, ref), (name, int((got != ref).sum()))
+    if name == "max_iters_1":
+        assert bool((ref < 0).any()), "the guard should leave persons unassigned"
 
 
 @pytest.mark.cuda
