@@ -15,11 +15,15 @@
    frames) and the train step's (B = 6), K3 flash attention at each key
    length of the decoder (1920, 7680, 30720; its time a clip is 3 launches
    at each) (K1 and K3 at atol 1e-4 in f32: summation order, the 3xTF32
-   products and exp differ), K4 NMS (exactly), K2 MSDA backward at
-   the train step's shapes (d value at atol 1e-4: atomics sum in another
-   order; d locations and d weights at atol 1e-4 + 2e-5 max|d|: f32
-   rounding of the sampling coordinates; no sampling coordinate within 1e-3
-   pixels of a bilinear kink, where the location gradient is two-valued);
+   products and exp differ), K4 NMS (exactly, at N = 1, 50, 64, 65 and
+   1024 with label ties; timed at the main path's N = 50 beside the device
+   time of an empty kernel launch, its floor), K2 MSDA backward at the
+   train step's shapes (d value at atol 1e-4: K2 sums it in fixed point,
+   the plain version in f32; d locations and d weights at atol 1e-4 + 2e-5
+   max|d|: f32 rounding of the sampling coordinates; no sampling coordinate
+   within 1e-3 pixels of a bilinear kink, where the location gradient is
+   two-valued), called 3 times and required bitwise identical, with a hash
+   of its gradients printed (two processes of one checkout print the same);
 4. drives the inference path: a full-width VideoPredictor (R50, 256 hidden,
    100 queries, 6 encoder layers, 9 decoder rounds, seeded random weights)
    answers 4 requests, each a T=8 uint8 clip at 360x640 with 720x1280
@@ -66,9 +70,9 @@
    kernel step's update of every parameter to its float64 recomputation
    from the step's gradients (clip, Adam, decay, multiplier, -lr).
 9. holds K6 (the MSDA separable-sampling ablation, four variants) against
-   its plain version at the ablation tool's default shapes (empty and
-   noconstruct exactly, dotonly and full at rtol 1e-5 / atol 1e-6: both
-   round each product and sum on its own) and times both, and `empty`
+   its plain version, bit for bit (both round each product and sum on its
+   own, in one order), at the ablation tool's default shapes and with 2
+   points fewer (rows not 16-byte aligned), and times both, and `empty`
    against `torch.zeros` of its output in turns (INTERLEAVED_RUNS each);
    then drives K6's own path, the ablation tool
    (`s2d_tpu_torch.tools.bench_pallas_ablate`) at its defaults, and checks
@@ -85,7 +89,14 @@
    720x1280), the AP keys and 6/9/1 K1/K3/K4 launches per video, prints
    the frames/s and the stage seconds, then runs the same videos on the
    plain path and requires identical keep-sets and labels, printing the
-   share of mask pixels that differ.
+   share of mask pixels that differ;
+11. writes a full-width reference-layout student/teacher .pth (the torch
+   oracle of tests/torch_oracle.py, two seeds) under build/ and loads it
+   through `VideoPredictor` on the card with EVAL_STUDENT on and off: each
+   time the model must hold that network's converted weights bit for bit,
+   and its logits and masks on a clip (f32) must lie far nearer the
+   oracle's own forward of that network than of the other (errors
+   printed).
 With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
@@ -94,7 +105,10 @@ and paths. --compare PARENT does that for two commits in one call: it
 copies itself into the checkout PARENT (e.g. `git archive <commit>`
 unpacked under build/), runs there and here in turns parent, change,
 change, parent, each in its own process with its log under build/compare/,
-and prints each run's key lines and the kernels' times side by side.
+and prints each run's key lines and the kernels' times side by side. In
+the parent's runs (CHIP_SMOKE_SIDE=parent) the checks of properties the
+parent does not have (K2's determinism, the checkpoint loader) print their
+result without failing.
 
 Any failure raises (exit code != 0). The second-to-last line is the kernels'
 JSON record, the last line {"ok": true, "device": {...}}. Without a CUDA
@@ -104,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -130,6 +145,11 @@ METRIC_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100"
 TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W, TRAIN_SLOTS, TRAIN_STEPS = 2, 3, 368, 640, 25, 3
 OFFSET_STD = 0.01  # the encoder's sampling-offset weights (see `new_train_state`)
 INTERLEAVED_RUNS = 5  # K6 empty and torch.zeros, timed in turns
+NMS_SIZES = (1, 50, 64, 65, 1024)  # K4: one, the main path's, 32-bit word edges, the most
+K2_CALLS = 3  # K2 calls on one input that must agree bit for bit
+# --compare runs the parent's checkout with this variable set: the checks of
+# what the parent does not have yet print their result without failing
+PARENT = os.environ.get("CHIP_SMOKE_SIDE") == "parent"
 TRACKS = 25  # NMS survivors `spread_queries` aims the eval weights at
 MIN_TRACKS = 10  # NMS survivors the eval phase needs in each video
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
@@ -466,22 +486,28 @@ def kernel_checks(dev, record):
     print("  K3 a clip (3 launches at each K): " + ", ".join(
         f"{key} {v:.4f}" for key, v in record["k3_flash"]["per_clip_ms"].items()))
 
-    # K4 at N=50 on random IoU / labels: the keep mask must match exactly
+    # K4 on random IoU / labels (int64, as the postprocess hands them over)
+    # at each of NMS_SIZES: the keep mask must match exactly. Timed at the
+    # main path's N = 50, beside the device time of an empty launch
     rng = np.random.RandomState(SEED)
-    for trial in range(8):
-        iou = rng.rand(50, 50).astype(np.float32)
-        if trial % 2:
-            iou = np.round(iou * 4) / 4  # ties with the threshold
-        iou = np.maximum(iou, iou.T)
-        np.fill_diagonal(iou, 1.0)
-        labels = rng.randint(0, 3 if trial < 4 else 1, 50)
-        iou_t = torch.from_numpy(iou).to(dev)
-        lab_t = torch.from_numpy(labels).to(dev)
-        got = k4.greedy_mask_nms(iou_t, lab_t, 0.75)
-        ref = k4.greedy_mask_nms_plain(iou_t, lab_t, 0.75)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"K4 keep mask differs from plain (trial {trial})")
-    print("  K4 vs plain: 8 keep masks identical (N=50)")
+    for n in NMS_SIZES:
+        for trial in range(8):
+            iou = rng.rand(n, n).astype(np.float32)
+            if trial % 2:
+                iou = np.round(iou * 4) / 4  # ties with the threshold
+            iou = np.maximum(iou, iou.T)
+            np.fill_diagonal(iou, 1.0)
+            labels = rng.randint(0, 3 if trial < 4 else 1, n)  # 1 label: every pair ties
+            iou_t = torch.from_numpy(iou).to(dev)
+            lab_t = torch.from_numpy(labels).to(dev)
+            got = k4.greedy_mask_nms(iou_t, lab_t, 0.75)
+            ref = k4.greedy_mask_nms_plain(iou_t, lab_t, 0.75)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K4 keep mask differs from plain (N={n}, trial {trial})")
+        if n == 50:
+            main_nms = (iou_t, lab_t, got)
+    print(f"  K4 vs plain: 8 keep masks identical at each N of {NMS_SIZES}")
+    iou_t, lab_t, got = main_nms
     record["k4_nms"] = dict(
         name="greedy_nms", route="cuda", source="s2d_tpu_torch/csrc/nms.cu",
         replaces="s2d_tpu/ops/nms.py:62", max_abs_err=0.0,
@@ -490,6 +516,11 @@ def kernel_checks(dev, record):
         # one compare per (candidate, earlier candidate)
         **bound(nbytes(iou_t, lab_t, got), 50 * 50), library_ms=None,
     )
+    if hasattr(k4, "empty_launch"):
+        # K4's floor: a byte bound sees none of its latency
+        record["k4_nms"]["launch_floor_ms"] = cuda_ms(lambda: k4.empty_launch(dev))
+        print(f"  K4 at N=50: {record['k4_nms']['ms']:.4f} ms; an empty kernel launch "
+              f"{record['k4_nms']['launch_floor_ms']:.4f} ms")
 
     # K2 at the train step's encoder shapes: B=2 clips x T=3 frames
     from s2d_tpu_torch.ops.ms_deform_attn_cuda import (
@@ -503,12 +534,28 @@ def kernel_checks(dev, record):
           f"{((locs < 0) | (locs > 1)).any(-1).float().mean().item():.1%} of the points outside [0, 1]")
     got = ms_deform_attn_bwd_cuda(value, LEVELS, locs, weights, grad_out)
     torch.cuda.synchronize()
+    # determinism: K2_CALLS calls bit for bit, and a hash that another
+    # process of this checkout must reproduce (--compare prints each run's)
+    digest = hashlib.sha256()
+    for g in got:
+        digest.update(g.cpu().numpy().tobytes())
+    differ = []
+    for call in range(1, K2_CALLS):
+        again = ms_deform_attn_bwd_cuda(value, LEVELS, locs, weights, grad_out)
+        differ += [f"call {call} d {what}" for what, a, b in
+                   zip(("value", "locations", "weights"), got, again) if not torch.equal(a, b)]
+    del again
+    print(f"K2 gradient hash {digest.hexdigest()[:16]}; {K2_CALLS} calls "
+          f"{'bitwise identical' if not differ else 'DIFFER: ' + ', '.join(differ)}")
+    if differ and not PARENT:
+        raise AssertionError(f"K2 is not deterministic: {differ}")
     ref = ms_deform_attn_bwd_plain(value, LEVELS, locs, weights, grad_out)
     ref64 = ms_deform_attn_bwd_plain(value.double(), LEVELS, locs.double(),
                                      weights.double(), grad_out.double())
     errs = []
     for what, g, r, r64 in zip(("value", "locations", "weights"), got, ref, ref64):
-        # d value: atol 1e-4, atomics sum in another order. d locations and
+        # d value: atol 1e-4, K2 sums in fixed point, the plain version in
+        # f32 in its own order. d locations and
         # d weights sum over the channels with corner weights that each
         # version derives from a sampling coordinate rounded in f32 (up to
         # 80 px, 8e-6 apart): held at atol 1e-4 + 2e-5 max|d|, the scale of
@@ -537,7 +584,7 @@ def kernel_checks(dev, record):
         ms=cuda_ms(lambda: ms_deform_attn_bwd_cuda(value, LEVELS, locs, weights, grad_out)),
         plain_ms=cuda_ms(lambda: ms_deform_attn_bwd_plain(value, LEVELS, locs, weights, grad_out)),
         **bound(nbytes(value, locs, weights, grad_out, *got), 27 * weights.numel() * value.shape[-1]),
-        library_ms=None,
+        library_ms=None, deterministic=not differ, gradient_hash=digest.hexdigest()[:16],
     )
     for key, r in record.items():
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
@@ -1051,21 +1098,23 @@ def ablate_checks(dev, record):
     args = tool.parse_args([])
     inputs = tool.make_inputs(args, dev)
     ng, gqp = inputs["vt"].shape[0], inputs["ya"].shape[-1]
+    # 2 points fewer: rows not 16-byte aligned, a ragged last group
+    ragged = {k: v if k == "vt" else v[..., :gqp - 2].contiguous() for k, v in inputs.items()}
     library = {"empty": lambda: torch.zeros((ng, args.d, gqp), dtype=torch.float32, device=dev)}
     print(f"K6 msda ablation: vt {tuple(inputs['vt'].shape)} bf16, points "
-          f"{tuple(inputs['ya'].shape)}")
+          f"{tuple(inputs['ya'].shape)}, and {gqp - 2} points")
     for variant in VARIANTS:
-        got = tool.call(msda_ablate, variant, inputs, args)
-        torch.cuda.synchronize()
-        ref = tool.call(msda_ablate_plain, variant, inputs, args)
-        if variant in ("empty", "noconstruct"):
+        for case in (inputs, ragged):
+            got = tool.call(msda_ablate, variant, case, args)
+            torch.cuda.synchronize()
+            ref = tool.call(msda_ablate_plain, variant, case, args)
             if not torch.equal(got, ref):
-                raise AssertionError(f"K6 {variant}: differs from its plain version")
-            err = 0.0
-            print(f"  K6 {variant} vs plain: identical")
-        else:
-            err = require_close(f"K6 {variant} vs plain", got, ref, 1e-5, 1e-6)
-        del got, ref
+                raise AssertionError(
+                    f"K6 {variant} ({case['ya'].shape[-1]} points): differs from its plain "
+                    f"version by up to {(got - ref).abs().max().item():.3e}")
+            del got, ref
+        err = 0.0
+        print(f"  K6 {variant} vs plain: identical at {gqp} and {gqp - 2} points")
         record[f"k6_{variant}"] = dict(
             name=f"msda_ablate_{variant}", route="cuda", source="s2d_tpu_torch/csrc/msda_ablate.cu",
             replaces="tools/bench_pallas_ablate.py:34", max_abs_err=err,
@@ -1297,11 +1346,89 @@ def eval_path(dev):
     return launches
 
 
+def checkpoint_path(dev):
+    """A full-width reference-layout student/teacher .pth through
+    `VideoPredictor`'s loader on the card, EVAL_STUDENT on and off. The
+    networks are the torch oracle of tests/torch_oracle.py (torch only) at
+    the inference config's widths, from two seeds; the reference for each
+    is the oracle's own forward of that network on the same clip, in f32."""
+    import dataclasses
+
+    from s2d_tpu_torch.config import VideoConfig
+    from s2d_tpu_torch.demo_video import VideoPredictor
+    from s2d_tpu_torch.models.meta_arch import preprocess_clip
+
+    try:
+        from s2d_tpu_torch.checkpoint import torch_import
+    except ImportError:
+        if PARENT:
+            print("checkpoint path: this checkout has no reference loader")
+            return
+        raise
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_oracle import TorchVideoMaskFormer
+
+    cfg = VideoConfig(amp=False)
+    nets = {}
+    for which, seed in (("student", SEED + 11), ("teacher", SEED + 12)):
+        torch.manual_seed(seed)
+        nets[which] = TorchVideoMaskFormer(
+            hidden_dim=cfg.hidden_dim, mask_dim=cfg.mask_dim, num_queries=cfg.num_queries,
+            nheads=cfg.nheads, dim_ff=cfg.dim_feedforward, dec_layers=cfg.dec_layers - 1,
+            enc_layers=cfg.enc_layers).eval()
+    kd = {f"{who}.{0 if k.startswith('backbone.') else 1}.{k.split('.', 1)[1]}": v
+          for who, net in nets.items() for k, v in net.state_dict().items()}
+    path = Path("build") / "chip_smoke_ckpt" / "kd.pth"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": kd, "iteration": 0}, path)
+    clip = np.random.RandomState(SEED + 3).randint(0, 256, (T, IN_H, IN_W, 3), dtype=np.uint8)
+    images, _ = preprocess_clip(clip, cfg.pixel_mean, cfg.pixel_std, cfg.size_divisibility, dev)
+    oracle = {}
+    for which, net in nets.items():
+        # the device as the default one: the oracle makes some of its
+        # constants with factory calls that name no device
+        with torch.no_grad(), dev:
+            out = net.to(dev)(images[0].permute(0, 3, 1, 2).contiguous(), T)
+        oracle[which] = {k: out[k] for k in ("pred_logits", "pred_masks")}
+        net.cpu()
+    print(f"checkpoint: {path} ({path.stat().st_size / 2**20:.0f} MiB), student and teacher "
+          "at full width")
+    for eval_student in (True, False):
+        which, other = ("student", "teacher") if eval_student else ("teacher", "student")
+        start = time.perf_counter()
+        predictor = VideoPredictor(dataclasses.replace(cfg, eval_student=eval_student),
+                                   weights=str(path), device=dev)
+        load_s = time.perf_counter() - start
+        want = torch_import.convert_reference_network(
+            {k: v.numpy() for k, v in nets[which].state_dict().items()})
+        got = predictor.model.state_dict()
+        if predictor.loaded != "reference" or set(got) != set(want) or not all(
+                torch.equal(got[k].cpu(), want[k]) for k in want):
+            raise AssertionError(f"EVAL_STUDENT={eval_student}: the model does not hold the "
+                                 f"{which}'s weights")
+        out, _ = predictor.forward(clip)
+        torch.cuda.synchronize()
+        errs = {}
+        for key in ("pred_logits", "pred_masks"):
+            if not torch.isfinite(out[key]).all():
+                raise AssertionError(f"EVAL_STUDENT={eval_student}: {key} not finite")
+            errs[key] = {n: (out[key] - oracle[n][key]).abs().max().item() for n in nets}
+        print(f"  EVAL_STUDENT={eval_student}: loaded the {which} in {load_s:.2f} s; max |port - "
+              "oracle| " + ", ".join(f"{key} {e[which]:.3e} (the {other}'s oracle {e[other]:.3e})"
+                                     for key, e in errs.items()))
+        for key, e in errs.items():
+            if not e[which] < 0.25 * e[other]:
+                raise AssertionError(f"EVAL_STUDENT={eval_student}: {key} not nearer the "
+                                     f"{which}'s oracle than the {other}'s")
+        del predictor, out
+
+
 COMPARE_ORDER = ("parent", "change", "change", "parent")
 # the lines of a run's log that the comparison prints under the run's header
 COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per span",
                  "  K5 on", "  K5:", "  K6 empty vs", "  ms_deform_attn_bwd:", "  batched_auction:",
-                 "  ms_deform_attn_fwd:", "eval path:", "K2 d", "build:")
+                 "  ms_deform_attn_fwd:", "eval path:", "K2 d", "K2 gradient hash", "build:",
+                 "  K4 at N=50", "  greedy_nms:", "  K6 ", "checkpoint", "  EVAL_STUDENT")
 
 
 def compare_checkouts(parent: Path, profile: bool) -> None:
@@ -1322,7 +1449,8 @@ def compare_checkouts(parent: Path, profile: bool) -> None:
         log = logs / f"compare_{i}_{side}.log"
         cmd = [sys.executable, "chip_smoke.py", *(["--profile"] if profile else [])]
         with open(log, "w") as out:
-            rc = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
+            rc = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=str(root),
+                                                         CHIP_SMOKE_SIDE=side),
                                 stdout=out, stderr=subprocess.STDOUT).returncode
         lines = log.read_text().splitlines()
         print(f"== run {i}: {side} ({root}), exit {rc}, log {log.relative_to(here)}")
@@ -1454,6 +1582,9 @@ def main(argv=None) -> int:
 
     # 10. the --eval-only path: evaluate_dataset -> results.json -> AP
     eval_launches = eval_path(dev)
+
+    # 11. a reference student/teacher checkpoint through the loader
+    checkpoint_path(dev)
 
     by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
                            "eval": eval_launches["k1_msda"]},

@@ -483,6 +483,9 @@ class VideoConfig:
     use_nms: bool = True
     num_predictions: int = 50
     nms_thresh: float = 0.75
+    # MODEL.MASK_FORMER.TEST.EVAL_STUDENT: which network of a student/teacher
+    # checkpoint is evaluated
+    eval_student: bool = False
     weights: str = ""
 
 
@@ -519,6 +522,7 @@ def from_s2d_config(cfg) -> VideoConfig:
         use_nms=mf.test.use_nms,
         num_predictions=mf.test.num_predictions,
         nms_thresh=mf.test.nms_thresh,
+        eval_student=mf.test.eval_student,
         weights=cfg.model.weights,
     )
 

@@ -1,15 +1,19 @@
 """Video inference with the port: `VideoPredictor` and the demo CLI.
 
     python -m s2d_tpu_torch.demo_video --input 'frames/*.jpg' --output out/ \
-        [--config-file cfg.yaml] [--weights params.npz] [--device cuda] \
+        [--config-file cfg.yaml] [--weights model.pth] [--device cuda] \
         [--confidence-threshold 0.8] [--save-masks] [opts ...]
 
 The flags are those of `tools/demo_video.py`. A clip goes through
 preprocess -> forward -> postprocess -> finalize; on a CUDA device the model
 runs the MSDA (K1) and flash cross-attention (K3) kernels and NMS runs K4,
-as the TPU demo turns on its Pallas kernels. Weights are the JAX package's
-flax params flattened to an .npz (see `checkpoint/from_jax.py`); without
-them the model is initialised from a seed. cv2 is imported lazily, for frame
+as the TPU demo turns on its Pallas kernels. Weights are a reference
+checkpoint (.pth or .pkl, see `checkpoint/torch_import.py`): of a
+student/teacher checkpoint, MODEL.MASK_FORMER.TEST.EVAL_STUDENT picks the
+network, as `tools/demo_video.py`; a backbone-only one is grafted into the
+seeded init. The JAX package's flax params flattened to an .npz (see
+`checkpoint/from_jax.py`) load too. Without weights the model is
+initialised from a seed. cv2 is imported lazily, for frame
 I/O only. Each stage of a clip is a `torch.profiler.record_function` span
 (preprocess, backbone, pixel_decoder, decoder, postprocess, finalize),
 which costs nothing while no profiler runs.
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .checkpoint.from_jax import load_npz, load_params_from_jax
+from .checkpoint.torch_import import load_weights, needs_init
 from .config import VideoConfig, load_config
 from .data.mapper import resize_shortest_edge
 from .evaluation.inference import finalize_predictions, postprocess_video
@@ -54,7 +58,10 @@ class VideoPredictor:
     """frames (T, H, W, 3) uint8 RGB -> finalized predictions (numpy).
 
     kernels=None uses the CUDA kernels exactly when `device` is a CUDA
-    device; kernels=False runs the plain PyTorch twins (on any device)."""
+    device; kernels=False runs the plain PyTorch twins (on any device).
+    weights: anything `checkpoint.torch_import.load_weights` takes; of a
+    student/teacher checkpoint the student when cfg.eval_student, else the
+    teacher."""
 
     def __init__(self, cfg: VideoConfig | None = None, weights=None, seed: int = 0,
                  device="cuda", kernels: bool | None = None):
@@ -68,11 +75,12 @@ class VideoPredictor:
             self.cfg,
             msda_impl="cuda" if self.kernels else "plain",
             flash_cross_attention=self.kernels,
-            seed=seed if weights is None else None,
+            seed=seed if needs_init(weights) else None,
         )
+        self.loaded = None  # what the weights were (load_weights), None without
         if weights is not None:
-            flat = load_npz(weights) if isinstance(weights, str) else weights
-            load_params_from_jax(self.model, flat)
+            self.loaded = load_weights(self.model, weights,
+                                       "student" if self.cfg.eval_student else "teacher")
         self.model.to(self.device)
 
     @torch.no_grad()
@@ -124,7 +132,9 @@ def parse_args(argv=None):
     parser.add_argument("--video-input", default="", help="video file (instead of --input)")
     parser.add_argument("--output", required=True)
     parser.add_argument("--confidence-threshold", type=float, default=0.8)
-    parser.add_argument("--weights", default="", help=".npz of flattened flax params")
+    parser.add_argument("--weights", default="",
+                        help="a reference .pth/.pkl (MODEL.MASK_FORMER.TEST.EVAL_STUDENT picks "
+                             "the student or the teacher) or an .npz of flattened flax params")
     parser.add_argument("--save-frames", action="store_true",
                         help="accepted as in tools/demo_video.py; overlays are always written")
     parser.add_argument("--save-masks", action="store_true")

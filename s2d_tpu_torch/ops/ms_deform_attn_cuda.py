@@ -81,7 +81,8 @@ def ms_deform_attn_bwd_cuda(
     attention_weights: torch.Tensor,  # (B, Lq, M, L, P) f32
     grad_out: torch.Tensor,  # (B, Lq, M * D) f32
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(d value, d locations, d weights) by the K2 kernel; a CPU tensor takes
+    """(d value, d locations, d weights) by the K2 kernel, bitwise the same
+    from call to call (d value is summed in fixed point); a CPU tensor takes
     `ms_deform_attn_bwd_plain`."""
     global BWD_LAUNCHES
     if not value.is_cuda:
@@ -94,11 +95,11 @@ def ms_deform_attn_bwd_cuda(
         raise ValueError(f"grad_out {tuple(grad_out.shape)}")
     if d % 4 or value.data_ptr() % 16 or grad_out.data_ptr() % 16:
         raise ValueError(f"K2 takes D % 4 == 0 (got {d}) and a 16-byte aligned value and grad_out")
-    grad_value = torch.zeros_like(value)
+    grad_value = torch.empty_like(value)  # every element written by the kernel
     grad_loc = torch.empty_like(sampling_locations)
     grad_attn = torch.empty_like(attention_weights)
     lib = _build.library()
-    # the launcher plans its accumulators, staging and grid from the level
+    # the launcher plans its accumulators, staging and grids from the level
     # shapes (host memory)
     rc = lib.s2d_msda_bwd(
         value.data_ptr(), _level_info(spatial_shapes).data_ptr(),

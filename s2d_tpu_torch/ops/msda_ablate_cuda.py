@@ -18,8 +18,9 @@ LAUNCHES = dict.fromkeys(VARIANTS, 0)  # kernel launches per variant since the l
 
 
 def msda_ablate(variant: str, vt, ya, wy0, wy1, x0, wx0, wx1, w: int, d: int) -> torch.Tensor:
-    """(ng, d, gqp) f32. vt (ng, W*d, k) bf16; ya, x0 (ng, 1, gqp) int32;
-    wy0, wy1, wx0, wx1 (ng, 1, gqp) f32; all contiguous on one device."""
+    """(ng, d, gqp) f32. vt (ng, W*d, k) bf16 with d and k multiples of 8 on
+    a card; ya, x0 (ng, 1, gqp) int32; wy0, wy1, wx0, wx1 (ng, 1, gqp) f32;
+    all contiguous on one device."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
     if not vt.is_cuda:
@@ -29,6 +30,8 @@ def msda_ablate(variant: str, vt, ya, wy0, wy1, x0, wx0, wx1, w: int, d: int) ->
         raise ValueError(f"vt has {wd} rows, expected W*d = {w}*{d}")
     if vt.dtype != torch.bfloat16:
         raise TypeError(f"vt must be bfloat16, got {vt.dtype}")
+    if d % 8 or k % 8:  # the kernel moves 8 channels (16 bytes) of vt at a time
+        raise ValueError(f"d = {d} and k = {k} must be multiples of 8")
     points = {"ya": (ya, torch.int32), "x0": (x0, torch.int32), "wy0": (wy0, torch.float32),
               "wy1": (wy1, torch.float32), "wx0": (wx0, torch.float32),
               "wx1": (wx1, torch.float32)}

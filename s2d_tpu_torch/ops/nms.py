@@ -18,7 +18,7 @@ import torch
 
 from .. import _build
 
-MAX_CANDIDATES = 1024  # one CUDA block, one thread per candidate
+MAX_CANDIDATES = 1024  # the removed set: 32 lanes of one warp x 32 bits
 EXACT_F32 = 1 << 24
 
 LAUNCHES = 0  # kernel launches since the last reset
@@ -76,7 +76,8 @@ def greedy_mask_nms(
 ) -> torch.Tensor:
     """Sequential greedy NMS over score-sorted candidates: candidate j is
     dropped iff a still-kept earlier candidate of its label has IoU > the
-    threshold with it. iou (N, N) f32, labels (N,) int. Returns (N,) bool."""
+    threshold with it. iou (N, N) f32, labels (N,) int (the kernel reads
+    int64, the postprocess's type, without a conversion). Returns (N,) bool."""
     global LAUNCHES
     if not iou.is_cuda:
         return greedy_mask_nms_plain(iou, labels, threshold)
@@ -89,12 +90,20 @@ def greedy_mask_nms(
         raise TypeError(f"iou must be contiguous float32, got {iou.dtype}")
     if labels.device != iou.device or labels.is_floating_point():
         raise TypeError(f"labels must be integer on {iou.device}")
-    labels32 = labels.to(torch.int32).contiguous()
+    labels = labels.to(torch.int64).contiguous()  # no copy for the postprocess's labels
     keep = torch.empty((n,), dtype=torch.bool, device=iou.device)
     rc = _build.library().s2d_greedy_nms(
-        iou.data_ptr(), labels32.data_ptr(), keep.data_ptr(), n, float(threshold),
+        iou.data_ptr(), labels.data_ptr(), keep.data_ptr(), n, float(threshold),
         _build.stream_handle(iou),
     )
     _build.check(rc, "s2d_greedy_nms")
     LAUNCHES += 1
     return keep
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel on `device`'s current stream: the device time
+    of a launch, the floor K4's time is held against (it does no work a
+    byte bound would see)."""
+    _build.check(_build.library().s2d_empty_launch(
+        torch.cuda.current_stream(device).cuda_stream), "s2d_empty_launch")

@@ -27,13 +27,12 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Tuple
 
-import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..checkpoint.from_jax import load_params_from_jax
+from ..checkpoint.torch_import import load_weights, needs_init
 from ..config import Config, from_s2d_config
 from ..demo_video import set_full_f32
 from ..losses.criterion import CriterionConfig, set_criterion, set_criterion_pair
@@ -92,25 +91,34 @@ def weighted_total(losses: Dict[str, torch.Tensor], weights: LossWeights, kd: bo
     return total
 
 
-def create_train_state(cfg: Config, seed: int = 0, device="cuda",
-                       params: Mapping[str, np.ndarray] | None = None,
-                       kernels: bool = True) -> TrainState:
-    """Student (train mode) from `seed`, or from flattened flax `params`;
-    the teacher a copy of it (eval mode, no gradients); the optimizer. On a
+def create_train_state(cfg: Config, seed: int = 0, device="cuda", params=None,
+                       kernels: bool = True, teacher_params=None) -> TrainState:
+    """Student (train mode) from `seed`, or from `params`; the teacher (eval
+    mode, no gradients) from `teacher_params`, or a copy of the student;
+    the optimizer. `params` and `teacher_params` take what
+    `checkpoint.torch_import.load_weights` takes (flattened flax params, the
+    port's state_dict, a checkpoint path): of a student/teacher checkpoint
+    the student goes to the student and the teacher to the teacher. On a
     CUDA device TF32 is turned off (full f32, as the JAX reference)."""
     device = torch.device(device)
     if device.type == "cuda":
         set_full_f32()
     mf = cfg.model.mask_former
-    student = build_model(
-        from_s2d_config(cfg), msda_impl="cuda" if kernels else "plain",
-        seed=seed if params is None else None, train=True, enc_dropout=mf.dropout,
-        grad_checkpoint=cfg.solver.grad_checkpoint,
-    )
-    if params is not None:
-        load_params_from_jax(student, params)
-    student = student.to(device)
-    teacher = copy.deepcopy(student).eval().requires_grad_(False)
+
+    def network(weights, which):
+        model = build_model(
+            from_s2d_config(cfg), msda_impl="cuda" if kernels else "plain",
+            seed=seed if needs_init(weights) else None, train=True, enc_dropout=mf.dropout,
+            grad_checkpoint=cfg.solver.grad_checkpoint,
+        )
+        if weights is not None:
+            load_weights(model, weights, which)
+        return model.to(device)
+
+    student = network(params, "student")
+    teacher = (copy.deepcopy(student) if teacher_params is None
+               else network(teacher_params, "teacher"))
+    teacher.eval().requires_grad_(False)
     return TrainState(0, student, teacher, KDOptimizer(list(student.named_parameters()), cfg))
 
 

@@ -243,7 +243,8 @@ def test_cuda_msda_path_shapes(cuda, frames):
 
 @pytest.mark.cuda
 def test_cuda_msda_backward_matches_twin(cuda):
-    """K2 against autograd through the plain core (atomics: summation order)."""
+    """K2 against autograd through the plain core (summation order: d value
+    in fixed point, the others over the lanes of a (query, head))."""
     value, locs, weights = (torch.from_numpy(a).to(cuda) for a in _msda_inputs(6, d=32))
     grad_out = torch.randn(value.shape[0], locs.shape[1], value.shape[2] * 32,
                            device=cuda, generator=torch.Generator(cuda).manual_seed(0))
@@ -304,8 +305,8 @@ def _off_kinks(locs, shapes):
 def test_cuda_msda_backward_border_and_thin_levels(cuda, shapes, d):
     """K2 with points outside the map, exactly on its border (0 and 1) and
     just outside it, on levels of width 1 and of one position; D = 16
-    leaves half the lanes of a (query, head) without channels. Every level
-    fits in shared memory here: d value sums in the block's accumulators."""
+    leaves half the lanes of a (query, head) without channels. Every map is
+    staged in shared memory here."""
     value, locs, weights = _msda_inputs(12, d=d, shapes=shapes)
     locs[:, 5] = 0.0
     locs[:, 6] = 1.0
@@ -320,9 +321,10 @@ def test_cuda_msda_backward_border_and_thin_levels(cuda, shapes, d):
 @pytest.mark.parametrize("frames", [8, 6], ids=["inference", "train"])
 def test_cuda_msda_backward_path_shapes(cuda, frames):
     """K2 at the encoder's shapes, value (frames, 5040, 8, 32) over the 12 x
-    20, 24 x 40 and 48 x 80 levels: the two small levels' d value in shared
-    memory, the large one's by 16-byte atomics into grad_value; offsets of 3
-    pixels' spread, points off the bilinear kinks."""
+    20, 24 x 40 and 48 x 80 levels (d value: a block per frame, head and 4
+    channels, all 5040 positions in its shared memory; d loc, d aw: the two
+    small maps staged); offsets of 3 pixels' spread, points off the bilinear
+    kinks."""
     levels = [(12, 20), (24, 40), (48, 80)]
     rng = np.random.RandomState(14)
     s = sum(h * w for h, w in levels)
@@ -342,8 +344,8 @@ def test_cuda_msda_backward_path_shapes(cuda, frames):
 @pytest.mark.cuda
 def test_cuda_msda_backward_level_too_large_to_stage(cuda):
     """A 96 x 160 level (1.9 MB a head at D = 32) beside a 12 x 20 one: no
-    shared-memory accumulator or copy holds it, so its d value goes straight
-    into grad_value."""
+    shared-memory copy holds its map, and d value's 15,600 positions take
+    3 position ranges (blocks) a frame, head and 4 channels."""
     shapes = [(12, 20), (96, 160)]
     value, locs, weights = _msda_inputs(15, b=2, lq=300, m=4, d=32, shapes=shapes)
     locs = _off_kinks(locs, shapes)
@@ -474,9 +476,9 @@ def test_cuda_nms_matches_twin(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_cuda_msda_ablate_matches_twin(cuda, variant):
-    """K6 against its plain version, the dropped corners included: exact for
-    empty and noconstruct; dotonly and full round each product and sum on
-    their own in both (no FMA contraction), held at rtol 1e-5 / atol 1e-6."""
+    """K6 against its plain version, the dropped corners included: bit for
+    bit in every variant (each product and sum rounds on its own in both,
+    no FMA contraction, in the same order)."""
     args = _ablate_tensors(*_ablate_inputs(7), device=cuda)
     w, d = ABLATE["w"], ABLATE["d"]
     before = msda_ablate_cuda.LAUNCHES[variant]
@@ -484,7 +486,166 @@ def test_cuda_msda_ablate_matches_twin(cuda, variant):
     torch.cuda.synchronize()
     assert msda_ablate_cuda.LAUNCHES[variant] == before + 1
     ref = msda_ablate_plain(variant, *args, w, d)
-    if variant in ("empty", "noconstruct"):
-        assert torch.equal(got, ref)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+def _msda_train_case(cuda, seed):
+    """K2's operands at the train step's encoder shapes: value (6, 5040, 8,
+    32) over the 12 x 20, 24 x 40 and 48 x 80 levels, offsets of 3 pixels'
+    spread off the bilinear kinks, softmax weights, a random grad_out."""
+    levels = [(12, 20), (24, 40), (48, 80)]
+    rng = np.random.RandomState(seed)
+    s = sum(h * w for h, w in levels)
+    norm = np.array([[w, h] for h, w in levels], np.float32)
+    ref_pts = rng.rand(6, s, 1, 3, 1, 2).astype(np.float32)
+    offsets = 3.0 * rng.randn(6, s, 8, 3, 4, 2).astype(np.float32)
+    locs = _off_kinks(ref_pts + offsets / norm[None, None, None, :, None, :], levels)
+    logits = rng.randn(6, s, 8, 12).astype(np.float32)
+    weights = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).reshape(6, s, 8, 3, 4)
+    value = rng.randn(6, s, 8, 32).astype(np.float32)
+    value, locs, weights = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                            for a in (value, locs, weights))
+    return value, levels, locs, weights, _grad_out(cuda, value, s, seed)
+
+
+@pytest.mark.cuda
+def test_cuda_msda_backward_is_deterministic(cuda):
+    """K2 three times on the same train-shape operands: d value, d locations
+    and d weights bitwise the same every time, and each within chip_smoke's
+    gates of the plain version (d value atol 1e-4)."""
+    value, levels, locs, weights, grad_out = _msda_train_case(cuda, 18)
+    first = _msda_bwd_check(cuda, value, levels, locs, weights, grad_out, scaled_atol=True)
+    for _ in range(2):
+        again = ms_deform_attn_cuda.ms_deform_attn_bwd_cuda(value, levels, locs, weights, grad_out)
+        for what, a, b in zip(("value", "locations", "weights"), first, again):
+            assert torch.equal(a, b), f"d {what} differs between two calls"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero_grad", "zero_weights", "nan_grad", "inf_weight",
+                                  "tiny_grad"])
+def test_cuda_msda_backward_fixed_point_edges(cuda, case):
+    """The fixed-point scale's edges: an all-zero grad_out or all-zero
+    weights (max 0) give zeros; a NaN in grad_out or an inf weight gives a
+    non-finite d value wherever the float sum is non-finite (never a finite
+    wrong one) and the float sum's values elsewhere; a grad_out of ~1e-30
+    (a scale far above 2^62) keeps its relative accuracy."""
+    value, locs, weights = (torch.from_numpy(a).to(cuda) for a in _msda_inputs(19, d=32))
+    grad_out = _grad_out(cuda, value, locs.shape[1], 5)
+    if case == "zero_grad":
+        grad_out.zero_()
+    elif case == "zero_weights":
+        weights.zero_()
+    elif case == "nan_grad":
+        grad_out[1, 3, 7] = float("nan")
+    elif case == "inf_weight":  # at a point inside its map: the float sum is non-finite
+        locs[0, 2, 1, 0, 0] = torch.tensor([0.5, 0.5])
+        weights[0, 2, 1, 0, 0] = float("inf")
     else:
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+        grad_out.mul_(1e-30)
+    dv, _, _ = ms_deform_attn_cuda.ms_deform_attn_bwd_cuda(value, MSDA_SHAPES, locs, weights,
+                                                          grad_out)
+    torch.cuda.synchronize()
+    ref = ms_deform_attn_cuda.ms_deform_attn_bwd_plain(value, MSDA_SHAPES, locs, weights,
+                                                       grad_out)[0]
+    if case.startswith("zero"):
+        assert torch.all(dv == 0)
+    elif case in ("nan_grad", "inf_weight"):
+        bad = ~torch.isfinite(ref)
+        assert bad.any() and not torch.isfinite(dv[bad]).any()
+        fine = torch.isfinite(dv)
+        torch.testing.assert_close(dv[fine], ref[fine], rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(dv, ref, rtol=1e-4, atol=1e-34)
+        assert ref.abs().max() > 1e-32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 50, 64, 65, 1024])
+def test_cuda_nms_sizes_and_label_ties(cuda, n):
+    """K4 at one candidate, the main path's 50, one and two 32-bit words of
+    the removed set past 32, and the most the kernel takes (1024: 32 lanes
+    of 32 bits, 128 KB of suppression rows); IoUs on a grid (ties with the
+    threshold) and with random ones, one label and three, int64 labels as
+    the postprocess hands them over and int32: keep masks exactly the
+    plain loop's."""
+    for seed, grid, one_label in ((0, True, False), (1, False, False), (2, True, True)):
+        iou, labels = _nms_case(seed, n, grid)
+        if one_label:
+            labels[:] = 0
+        for dtype in (torch.int64, torch.int32):
+            iou_t = torch.from_numpy(iou).to(cuda)
+            lab_t = torch.from_numpy(labels).to(cuda, dtype)
+            before = nms.LAUNCHES
+            got = nms.greedy_mask_nms(iou_t, lab_t, 0.75)
+            torch.cuda.synchronize()
+            assert nms.LAUNCHES == before + 1
+            assert torch.equal(got, nms.greedy_mask_nms_plain(iou_t, lab_t, 0.75)), (n, seed, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gqp", [255, 258])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_msda_ablate_ragged_points(cuda, variant, gqp):
+    """K6 with a point count not a multiple of 4 (rows not 16-byte aligned,
+    a ragged last group of 3 or 2 points): bit for bit the plain version."""
+    args = _ablate_tensors(*_ablate_inputs(8, gqp=gqp), device=cuda)
+    got = msda_ablate_cuda.msda_ablate(variant, *args, ABLATE["w"], ABLATE["d"])
+    torch.cuda.synchronize()
+    ref = msda_ablate_plain(variant, *args, ABLATE["w"], ABLATE["d"])
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_msda_ablate_tool_shapes(cuda, variant):
+    """K6 at the ablation tool's defaults (vt (8, 640, 128): 160 KB an i,
+    staged in shared memory for full) and at --w 48 (vt[i] 384 KB: too
+    large to stage, read from L2): bit for bit the plain version."""
+    from s2d_tpu_torch.tools import bench_pallas_ablate as tool
+
+    for argv in ([], ["--w", "48", "--g", "2"]):
+        args = tool.parse_args(argv)
+        inputs = tool.make_inputs(args, cuda)
+        got = tool.call(msda_ablate_cuda.msda_ablate, variant, inputs, args)
+        torch.cuda.synchronize()
+        ref = tool.call(msda_ablate_plain, variant, inputs, args)
+        assert torch.equal(got, ref), (argv, float((got - ref).abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_reference_checkpoint_eval_student(cuda, tmp_path):
+    """A full-width reference-layout student/teacher .pth (the torch oracle
+    of tests/torch_oracle.py, two seeds) through `VideoPredictor`'s loader
+    on the card: EVAL_STUDENT on gives the student's outputs, off the
+    teacher's. Each is held to the oracle's own forward of its network (f32,
+    TF32 off) at the golden tolerance, rtol 1e-3 / atol 2e-3."""
+    import dataclasses
+
+    from s2d_tpu_torch.config import VideoConfig
+    from s2d_tpu_torch.demo_video import VideoPredictor
+    from s2d_tpu_torch.models.meta_arch import preprocess_clip
+    from torch_oracle import TorchVideoMaskFormer
+
+    cfg = VideoConfig(amp=False)
+    nets = {}
+    for which, seed in (("student", 11), ("teacher", 12)):
+        torch.manual_seed(seed)
+        nets[which] = TorchVideoMaskFormer().eval()
+    kd = {f"{who}.{0 if k.startswith('backbone.') else 1}.{k.split('.', 1)[1]}": v
+          for who, net in nets.items() for k, v in net.state_dict().items()}
+    path = str(tmp_path / "kd.pth")
+    torch.save({"model": kd}, path)
+    clip = np.random.RandomState(3).randint(0, 256, (2, 128, 192, 3), dtype=np.uint8)
+    images, _ = preprocess_clip(clip, cfg.pixel_mean, cfg.pixel_std, 32, cuda)
+    for eval_student in (True, False):
+        which = "student" if eval_student else "teacher"
+        predictor = VideoPredictor(dataclasses.replace(cfg, eval_student=eval_student),
+                                   weights=path, device=cuda)
+        assert predictor.loaded == "reference"
+        out, _ = predictor.forward(clip)
+        with torch.no_grad(), cuda:  # the oracle makes some constants without a device
+            ref = nets[which].to(cuda)(images[0].permute(0, 3, 1, 2).contiguous(), 2)
+        nets[which].cpu()
+        for key in ("pred_logits", "pred_masks"):
+            torch.testing.assert_close(out[key], ref[key], rtol=1e-3, atol=2e-3, msg=key)
