@@ -96,7 +96,18 @@
    time the model must hold that network's converted weights bit for bit,
    and its logits and masks on a clip (f32) must lie far nearer the
    oracle's own forward of that network than of the other (errors
-   printed).
+   printed);
+12. drives the train CLI (`s2d_tpu_torch.train_net_video.main`, see
+   `train_cli_path`): the KD config at full width with SOLVER.MAX_ITER 4,
+   CHECKPOINT_PERIOD 2, TEST.EVAL_PERIOD 4, over a synthetic sparsely
+   annotated train set of 6 videos of 10 frames at 720x1280 and a 2-video
+   test set, the frames handed in through `mapper=` and `eval_mapper=` (the
+   loader, the augmentation, copy-paste where configured, B=4 clips of 3
+   frames); it starts from phase 6's seeded state saved as step 0 and
+   enters through --resume, then resumes to MAX_ITER 6; checks metrics.json,
+   the K1/K2/K5 launches of each step, the evals' K1/K3/K4 launches and
+   results.json, the checkpoints and each resumed state bit for bit, and
+   prints the step time, the data-time share and the peak device memory.
 With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
@@ -151,6 +162,12 @@ K2_CALLS = 3  # K2 calls on one input that must agree bit for bit
 # what the parent does not have yet print their result without failing
 PARENT = os.environ.get("CHIP_SMOKE_SIDE") == "parent"
 TRACKS = 25  # NMS survivors `spread_queries` aims the eval weights at
+# phase 12: the train CLI's synthetic train set (videos, frames a video,
+# instances a video), its test set's video lengths, and MAX_ITER of the
+# first run and of the resumed one
+TRAIN_SET_VIDEOS, TRAIN_SET_LENGTH, TRAIN_SET_INSTANCES = 6, 10, (3, 8)
+CLI_EVAL_LENGTHS = (8, 5)
+CLI_ITERS = (4, 6)
 MIN_TRACKS = 10  # NMS survivors the eval phase needs in each video
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
 # bytes/s, float32 operations/s outside the tensor cores, TF32 operations/s
@@ -1157,10 +1174,11 @@ def ablate_path():
     return launches
 
 
-def write_eval_set(root: Path, rng) -> dict:
-    """A YTVIS set of EVAL_LENGTHS videos recorded at OUT_SIZE, each with 3
-    drifting ellipses as ground truth (per-frame RLE by the port's codec),
-    registered as EVAL_DATASET. Returns the 360x640 uint8 frames per video
+def write_eval_set(root: Path, rng, lengths=EVAL_LENGTHS, name=EVAL_DATASET,
+                   class_agnostic=True) -> dict:
+    """A YTVIS set of videos of `lengths` frames recorded at OUT_SIZE, each
+    with 3 drifting ellipses as ground truth (per-frame RLE by the port's
+    codec), registered as `name`. Returns the 360x640 uint8 frames per video
     id (no image file is written: the card has no cv2) and prints the host
     time of one ground-truth (ellipse) mask's RLE encoding."""
     from s2d_tpu_torch.data import rle, ytvis
@@ -1170,7 +1188,7 @@ def write_eval_set(root: Path, rng) -> dict:
     videos, annotations, frames = [], [], {}
     rle.encode(np.zeros((8, 8), bool))  # builds the native RLE library, untimed
     encode_s = 0.0
-    for vid, t in enumerate(EVAL_LENGTHS, start=1):
+    for vid, t in enumerate(lengths, start=1):
         videos.append({"id": vid, "height": h, "width": w, "length": t,
                        "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(t)]})
         frames[vid] = rng.randint(0, 256, (t, IN_H, IN_W, 3), dtype=np.uint8)
@@ -1186,14 +1204,14 @@ def write_eval_set(root: Path, rng) -> dict:
                 encode_s += time.perf_counter() - start
             annotations.append({"id": 3 * vid + j, "video_id": vid, "category_id": 1,
                                 "segmentations": segs, "iscrowd": 0})
-    n_masks = 3 * sum(EVAL_LENGTHS)
-    print(f"eval set: {n_masks} ground-truth masks, RLE encoding {encode_s * 1e3 / n_masks:.2f} "
-          f"ms a mask (host)")
+    n_masks = 3 * sum(lengths)
+    print(f"eval set {name}: {n_masks} ground-truth masks, RLE encoding "
+          f"{encode_s * 1e3 / n_masks:.2f} ms a mask (host)")
     root.mkdir(parents=True, exist_ok=True)
     path = root / "valid.json"
     path.write_text(json.dumps({"videos": videos, "annotations": annotations,
                                 "categories": [{"id": 1, "name": "fg"}]}))
-    ytvis.register_ytvis(EVAL_DATASET, str(path), str(root), class_agnostic=True)
+    ytvis.register_ytvis(name, str(path), str(root), class_agnostic=class_agnostic)
     return frames
 
 
@@ -1423,12 +1441,226 @@ def checkpoint_path(dev):
         del predictor, out
 
 
+def write_train_set(root: Path, name: str, rng, frame_hw=OUT_SIZE) -> dict:
+    """A YTVIS train set of TRAIN_SET_VIDEOS videos of TRAIN_SET_LENGTH
+    frames at `frame_hw`, registered as `name`, each with 3-8 drifting
+    ellipses annotated sparsely, keymask-style: an instance has a mask on a
+    window of frames and None elsewhere. The last video's windows are 1-2
+    frames long, so no 3 consecutive frames of it are annotated and its
+    clips take the sparse frame selection; the others take the dense one.
+    Returns the uint8 frames per video id (no image file is written)."""
+    from s2d_tpu_torch.data import rle, ytvis
+
+    h, w = frame_hw
+    yy, xx = np.mgrid[:h, :w]
+    videos, annotations, frames = [], [], {}
+    n = TRAIN_SET_LENGTH
+    for vid in range(1, TRAIN_SET_VIDEOS + 1):
+        videos.append({"id": vid, "height": h, "width": w, "length": n,
+                       "file_names": [f"v{vid}/{i:05d}.jpg" for i in range(n)]})
+        frames[vid] = rng.randint(0, 256, (n, h, w, 3), dtype=np.uint8)
+        longest = 2 if vid == TRAIN_SET_VIDEOS else n
+        for j in range(rng.randint(TRAIN_SET_INSTANCES[0], TRAIN_SET_INSTANCES[1] + 1)):
+            span = rng.randint(1, longest + 1)
+            first = rng.randint(0, n - span + 1)
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            ry, rx = rng.uniform(0.05, 0.25) * h, rng.uniform(0.05, 0.25) * w
+            vy, vx = rng.uniform(-10, 10, 2)
+            segs = [rle.encode(((yy - cy - vy * i) / ry) ** 2 + ((xx - cx - vx * i) / rx) ** 2 < 1)
+                    if first <= i < first + span else None for i in range(n)]
+            annotations.append({"id": 100 * vid + j, "video_id": vid, "category_id": 1,
+                                "segmentations": segs, "iscrowd": 0})
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / "train.json"
+    path.write_text(json.dumps({"videos": videos, "annotations": annotations,
+                                "categories": [{"id": 1, "name": "fg"}]}))
+    ytvis.register_ytvis(name, str(path), str(root), class_agnostic=True)
+    print(f"train set {name}: {len(videos)} videos of {n} frames at {h}x{w}, "
+          f"{len(annotations)} sparsely annotated instances")
+    return frames
+
+
+def train_cli_path(dev, class_scale, opts=(), frame_hw=OUT_SIZE) -> dict:
+    """The train CLI, `s2d_tpu_torch.train_net_video.main`, on the card: the
+    KD config with SOLVER.MAX_ITER 4, CHECKPOINT_PERIOD 2, TEST.EVAL_PERIOD 4
+    and OUTPUT_DIR under build/ (and `opts`, which only a rehearsal off the
+    card passes), over a synthetic train set (`write_train_set`) and test
+    set registered under the config's DATASETS names, with the frames handed
+    in through `mapper=` (the config's ClipMapper with a frame reader) and
+    `eval_mapper=`. It starts from `new_train_state` saved by the port's
+    CheckpointWriter as step 0 and enters through --resume, then resumes to
+    MAX_ITER 6. Checks: metrics.json's train lines for iterations 0-5 in
+    order with finite losses, grad_finite 1, data_time and time; the
+    K1/K2/K5 launches of every step (`expected_launches`); the evals at
+    steps 4 and 6 (the end of a run evaluates too; K1, K3, K4 launches per
+    video, inference_<step>/results.json, the AP keys); checkpoints at 2, 4
+    and 6; each run's state as --resume restored it equal, bit for bit, to
+    the checkpoint it resumed from. The loop runs as shipped: the launches
+    are counted around each step without a synchronize, the restored state
+    is copied out before the loop starts, and the step time and data-time
+    share are the loop's own (`time`, `data_time` of metrics.json). Returns
+    the launches of both runs."""
+    from s2d_tpu_torch import train_net_video
+    from s2d_tpu_torch.checkpoint import io as ckpt_io
+    from s2d_tpu_torch.checkpoint.io import STATE_FILE, CheckpointWriter
+    from s2d_tpu_torch.config import load_config_tree
+    from s2d_tpu_torch.data.mapper import ClipMapper, MapperConfig
+    from s2d_tpu_torch.evaluation import evaluator
+    from s2d_tpu_torch.ops import masked_attention_cuda, ms_deform_attn_cuda, nms
+    from s2d_tpu_torch.train import trainer
+
+    root = Path("build") / "chip_smoke_train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    out = root / "out"
+    cfg = load_config_tree(KD_CONFIG, opts)
+    rng = np.random.RandomState(SEED + 4)
+    start = time.perf_counter()
+    frames = write_train_set(root / "train", cfg.datasets.train[0], rng, frame_hw)
+    eval_frames = write_eval_set(root / "test", rng, CLI_EVAL_LENGTHS, cfg.datasets.test[0],
+                                 class_agnostic=False)
+    print(f"train CLI data: {time.perf_counter() - start:.1f} s (host)")
+    state = new_train_state(cfg, dev, class_scale=class_scale)
+    start = time.perf_counter()
+    with CheckpointWriter(str(out / "checkpoints")) as writer:
+        writer.save(0, state)
+    print(f"train CLI: the starting state saved as step 0 in {time.perf_counter() - start:.1f} s")
+    del state
+    torch.cuda.empty_cache()
+
+    mapper = ClipMapper(MapperConfig.from_config(cfg), seed=max(cfg.seed, 0),
+                        read_frames=lambda record, idx: [frames[record["video_id"]][i] for i in idx])
+    counters = {**train_counters(), "k3_flash": (masked_attention_cuda, "LAUNCHES"),
+                "k4_nms": (nms, "LAUNCHES")}
+    steps, starts, evals = [], [], []
+    own_make, own_eval = trainer.make_train_step, evaluator.evaluate_dataset
+    own_restore = ckpt_io.restore_checkpoint
+
+    def make_train_step(cfg_, kernels=True):
+        step_fn = own_make(cfg_, kernels)
+
+        def step(state, *args, **kwargs):
+            before = read_counts(counters)
+            result = step_fn(state, *args, **kwargs)
+            grew = {k: v - before[k] for k, v in read_counts(counters).items()}
+            steps.append((grew, tuple(args[0].shape)))
+            return result
+        return step
+
+    def restore_checkpoint(ckpt_dir, state, step=None):
+        restored = own_restore(ckpt_dir, state, step)
+        starts.append({k: v.to("cpu", copy=True) if torch.is_tensor(v) else v
+                       for k, v in flat_state(state.state_dict()).items()})
+        return restored
+
+    def evaluate_dataset(*args, **kwargs):
+        before = read_counts(counters)
+        metrics = own_eval(*args, **kwargs)
+        evals.append({k: v - before[k] for k, v in read_counts(counters).items()})
+        return metrics
+
+    base = ["--device", dev.type, "--config-file", KD_CONFIG, *opts, "SOLVER.CHECKPOINT_PERIOD", "2",
+            "TEST.EVAL_PERIOD", "4", "OUTPUT_DIR", str(out)]
+    runs = [["--resume", *base, "SOLVER.MAX_ITER", str(n)] for n in CLI_ITERS]
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.make_train_step, evaluator.evaluate_dataset = make_train_step, evaluate_dataset
+    ckpt_io.restore_checkpoint = restore_checkpoint
+    walls = []
+    try:
+        for argv in runs:
+            t0 = time.perf_counter()
+            rc = train_net_video.main(argv, mapper=mapper,
+                                      eval_mapper=lambda record: {"image": eval_frames[record["video_id"]]})
+            walls.append(time.perf_counter() - t0)
+            if rc != 0:
+                raise AssertionError(f"train CLI {argv}: exit {rc}")
+    finally:
+        trainer.make_train_step, evaluator.evaluate_dataset = own_make, own_eval
+        ckpt_io.restore_checkpoint = own_restore
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    lines = [json.loads(line) for line in (out / "metrics.json").read_text().splitlines()]
+    train = [line for line in lines if "total_loss" in line]
+    if [line["iteration"] for line in train] != list(range(CLI_ITERS[-1])):
+        raise AssertionError(f"train CLI: metrics.json iterations {[x['iteration'] for x in train]}")
+    for line in train:
+        bad = [k for k in ("total_loss", "loss_mask", "kd_loss_mask", "data_time", "time")
+               if not np.isfinite(line[k])]
+        if bad or line["grad_finite"] != 1.0:
+            raise AssertionError(f"train CLI iteration {line['iteration']}: non-finite {bad}, "
+                                 f"grad_finite {line['grad_finite']}")
+    expected = expected_launches(cfg)
+    for i, (grew, _) in enumerate(steps):
+        train_part = {k: grew[k] for k in expected}
+        if train_part != expected or grew["k3_flash"] or grew["k4_nms"]:
+            raise AssertionError(f"train CLI step {i}: launches {grew}, expected {expected}")
+    if len(steps) != CLI_ITERS[-1]:
+        raise AssertionError(f"train CLI: {len(steps)} steps, expected {CLI_ITERS[-1]}")
+    # an eval every EVAL_PERIOD steps and at the end: steps 4 and 6
+    per_eval = {k: len(CLI_EVAL_LENGTHS) * PER_CLIP.get(k, 0) for k in counters}
+    if evals != [per_eval] * 2:
+        raise AssertionError(f"train CLI eval launches {evals}, expected two evals of {per_eval}")
+    results = {n: json.loads((out / f"inference_{n}" / "results.json").read_text())
+               for n in (CLI_ITERS[0], CLI_ITERS[-1])}
+    eval_lines = [line for line in lines if "total_loss" not in line]
+    ap_keys = [f"{cfg.datasets.test[0]}/{k}" for k in METRIC_KEYS]
+    if [line["iteration"] for line in eval_lines] != [CLI_ITERS[0] - 1, CLI_ITERS[-1] - 1] or any(
+            k not in line for line in eval_lines for k in ap_keys):
+        raise AssertionError(f"train CLI: eval lines {eval_lines}")
+    saved = sorted(int(p.name) for p in (out / "checkpoints").iterdir() if p.name.isdigit())
+    if saved != [0, 2, 4, 6]:
+        raise AssertionError(f"train CLI: checkpoints at {saved}")
+    for resumed_from, got in zip((0, CLI_ITERS[0]), starts, strict=True):
+        want = flat_state(torch.load(out / "checkpoints" / str(resumed_from) / STATE_FILE,
+                                     map_location="cpu", weights_only=True))
+        differ = [k for k in want if not (torch.equal(got[k], want[k]) if torch.is_tensor(want[k])
+                                          else got[k] == want[k])]
+        if set(got) != set(want) or differ:
+            raise AssertionError(f"train CLI: the state restored from step {resumed_from} "
+                                 f"differs from its checkpoint in {differ[:5]}")
+    step_ms = [x["time"] * 1e3 for x in train]
+    later = [i for i in range(len(train)) if i not in (0, CLI_ITERS[0])]  # not a run's first
+    steady = [step_ms[i] for i in later]
+    data_s, total_s = sum(x["data_time"] for x in train), sum(x["time"] for x in train)
+    later_share = sum(train[i]["data_time"] for i in later) / sum(train[i]["time"] for i in later)
+    data_times = ", ".join(f"{x['data_time']:.3f}" for x in train)
+    print(f"train CLI path: {len(steps)} steps of B={steps[0][1][0]} clips of T={steps[0][1][1]} "
+          f"(canvases {sorted({s[1][2:4] for s in steps})}), {np.mean(steady):.1f} ms a step after "
+          f"each run's first (metrics.json time, the loop as shipped: steps "
+          f"{', '.join(f'{ms:.1f}' for ms in step_ms)} ms), data-time share {later_share:.4f} "
+          f"after each run's first step, {data_s / total_s:.4f} over all (data_time per step "
+          f"{data_times} s), peak device memory "
+          f"{peak / 2**30:.2f} GiB; runs {walls[0]:.1f} s and {walls[1]:.1f} s (wall)")
+    print(f"  launches per step {steps[0][0]}; evals at steps {list(results)}: launches "
+          f"{evals[0]} each, {[len(r) for r in results.values()]} results, "
+          + ", ".join(f"{k} {eval_lines[0][f'{cfg.datasets.test[0]}/{k}']:.4f}" for k in METRIC_KEYS[:3]))
+    print(f"  checkpoints {saved}; the state each run restored equals the checkpoint it "
+          f"resumed from (steps 0 and {CLI_ITERS[0]}), bit for bit; metrics.json iterations "
+          f"0-{CLI_ITERS[-1] - 1} finite, grad_finite 1")
+    return launches
+
+
+def flat_state(sd: dict) -> dict:
+    """A TrainState.state_dict(), flattened to one dict of tensors and ints."""
+    flat = {"step": sd["step"], "count": sd["optimizer"]["count"],
+            "mini_step": sd["optimizer"]["mini_step"]}
+    for net in ("student", "teacher"):
+        flat.update({f"{net}.{k}": v for k, v in sd[net].items()})
+    for key in ("mu", "nu", "acc"):
+        for name, v in zip(sd["optimizer"]["names"], sd["optimizer"][key] or []):
+            flat[f"optimizer.{key}.{name}"] = v
+    return flat
+
+
 COMPARE_ORDER = ("parent", "change", "change", "parent")
 # the lines of a run's log that the comparison prints under the run's header
 COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per span",
                  "  K5 on", "  K5:", "  K6 empty vs", "  ms_deform_attn_bwd:", "  batched_auction:",
                  "  ms_deform_attn_fwd:", "eval path:", "K2 d", "K2 gradient hash", "build:",
-                 "  K4 at N=50", "  greedy_nms:", "  K6 ", "checkpoint", "  EVAL_STUDENT")
+                 "  K4 at N=50", "  greedy_nms:", "  K6 ", "checkpoint", "  EVAL_STUDENT",
+                 "train CLI")
 
 
 def compare_checkouts(parent: Path, profile: bool) -> None:
@@ -1485,6 +1717,7 @@ def main(argv=None) -> int:
                         help="instead: run this script in the checkout PARENT and in this one, "
                              "in turns parent, change, change, parent, and compare them")
     args = parser.parse_args(argv)
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
     if args.compare:
@@ -1586,12 +1819,19 @@ def main(argv=None) -> int:
     # 11. a reference student/teacher checkpoint through the loader
     checkpoint_path(dev)
 
+    # 12. the train CLI: loader, steps, checkpoints, --resume, periodic eval
+    cli_launches = train_cli_path(dev, class_scale)
+
     by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
-                           "eval": eval_launches["k1_msda"]},
-               "k3_flash": {"inference": launches["k3_flash"], "eval": eval_launches["k3_flash"]},
-               "k4_nms": {"inference": launches["k4_nms"], "eval": eval_launches["k4_nms"]},
-               "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"]},
-               "k5_auction": {"train": train_launches["k5_auction"]},
+                           "eval": eval_launches["k1_msda"], "train_cli": cli_launches["k1_msda"]},
+               "k3_flash": {"inference": launches["k3_flash"], "eval": eval_launches["k3_flash"],
+                            "train_cli": cli_launches["k3_flash"]},
+               "k4_nms": {"inference": launches["k4_nms"], "eval": eval_launches["k4_nms"],
+                          "train_cli": cli_launches["k4_nms"]},
+               "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"],
+                               "train_cli": cli_launches["k2_msda_bwd"]},
+               "k5_auction": {"train": train_launches["k5_auction"],
+                              "train_cli": cli_launches["k5_auction"]},
                **{f"k6_{v}": {"ablation": n} for v, n in ablate_launches.items()}}
     for key, paths in by_path.items():
         if not all(paths.values()):
@@ -1599,6 +1839,7 @@ def main(argv=None) -> int:
     kernels = [dict(record[k], launches=sum(by_path[k].values()), launches_by_path=by_path[k])
                for k in ("k1_msda", "k2_msda_bwd", "k3_flash", "k4_nms", "k5_auction",
                          *(f"k6_{v}" for v in ablate_launches))]
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s from the start of main")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""s2d_tpu_torch: the PyTorch + CUDA port of s2d_tpu's video-inference path.
+"""s2d_tpu_torch: the PyTorch + CUDA port of s2d_tpu's video inference,
+evaluation and KD training.
 
 The JAX package `s2d_tpu` beside it is the reference; module names mirror
 it one to one. The hand-written kernels live in `csrc/` and are built with

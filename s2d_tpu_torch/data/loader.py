@@ -1,11 +1,106 @@
-"""The evaluator's pipeline threads: the port's copy of `FinalizeThread` and
-`_prefetch` from `s2d_tpu/data/loader.py`, with their deadlock-safe error
-paths. The train loader waits for the train CLI (ROADMAP queue 1)."""
+"""The loaders and pipeline threads of `s2d_tpu/data/loader.py`.
+
+  * `collate_clips` and `train_loader`: an infinite shuffled sampler over
+    the dataset records, the clip mapper, a batch transform (copy-paste),
+    and fixed-shape collation (the frames normalized and zero-padded to a
+    per-batch canvas bucketed to 64 pixels), on a background thread. A
+    process takes every num_shards-th record of the seeded permutation
+    from shard_index. Batches leave as numpy arrays; the train loop uploads
+    them. Bit-packed targets (`pack_masks`) are not ported: the train step
+    takes bool masks.
+  * `FinalizeThread` and `Prefetcher`, the pipeline threads of both
+    loops, with their deadlock-safe error paths.
+"""
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
-from typing import Iterator
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+
+def _bucket(value: int, multiple: int = 64) -> int:
+    return -(-value // multiple) * multiple
+
+
+def collate_clips(
+    samples: List[dict],
+    pixel_mean: Sequence[float],
+    pixel_std: Sequence[float],
+    size_divisibility: int = 32,
+    bucket_multiple: int = 64,
+    pack_masks: bool = False,
+) -> Dict[str, np.ndarray]:
+    """Normalize, pad to the batch's bucketed canvas, stack: {"images"
+    (B, T, H, W, 3) float32, "masks" (B, N, T, H, W) bool, "valid" (B, N)}."""
+    if pack_masks:
+        raise NotImplementedError(
+            "bit-packed targets are not ported yet (ROADMAP queue 1, item 6): the train "
+            "step takes bool masks")
+    if "distill_image" in samples[0]:
+        raise NotImplementedError("the disentangled distillation view is not ported yet "
+                                  "(ROADMAP queue 1, item 6)")
+    t = samples[0]["image"].shape[0]
+    max_h = _bucket(_bucket(max(s["image"].shape[1] for s in samples), bucket_multiple),
+                    size_divisibility)
+    max_w = _bucket(_bucket(max(s["image"].shape[2] for s in samples), bucket_multiple),
+                    size_divisibility)
+    mean = np.asarray(pixel_mean, np.float32)
+    std = np.asarray(pixel_std, np.float32)
+    b = len(samples)
+    n = samples[0]["masks"].shape[0]
+    images = np.zeros((b, t, max_h, max_w, 3), np.float32)
+    masks = np.zeros((b, n, t, max_h, max_w), bool)
+    valid = np.zeros((b, n), bool)
+    for i, s in enumerate(samples):
+        _, h, w, _ = s["image"].shape
+        images[i, :, :h, :w] = (s["image"] - mean) / std
+        masks[i, :, :, :h, :w] = s["masks"]
+        valid[i] = s["valid"]
+    return {"images": images, "masks": masks, "valid": valid}
+
+
+def train_loader(
+    dataset_dicts: List[dict],
+    mapper: Callable[[dict], dict],
+    batch_size: int,
+    pixel_mean: Sequence[float],
+    pixel_std: Sequence[float],
+    seed: int = 0,
+    num_shards: int = 1,
+    shard_index: int = 0,
+    prefetch: int = 2,
+    batch_transform: Optional[Callable[[List[dict]], List[dict]]] = None,
+    pack_masks: bool = False,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Infinite `Prefetcher` of collated batches of this process's shard,
+    mapped `prefetch` batches ahead on a background thread (close it when
+    done). `batch_transform` (the copy-paste) runs on the uncollated
+    samples, on that thread."""
+    if pack_masks:
+        raise NotImplementedError(
+            "bit-packed targets are not ported yet (ROADMAP queue 1, item 6)")
+    rng = np.random.RandomState(seed)
+
+    def sample_stream():
+        while True:
+            order = rng.permutation(len(dataset_dicts))[shard_index::num_shards]
+            for idx in order:
+                s = mapper(dataset_dicts[idx])
+                if s is not None:
+                    yield s
+
+    def batch_stream():
+        stream = sample_stream()
+        while True:
+            samples = list(itertools.islice(stream, batch_size))
+            if batch_transform is not None:
+                samples = batch_transform(samples)
+            yield collate_clips(samples, pixel_mean, pixel_std)
+
+    return Prefetcher(batch_stream(), prefetch)
 
 
 class FinalizeThread:
@@ -52,31 +147,51 @@ class FinalizeThread:
             raise self._err[0]
 
 
-def _prefetch(it: Iterator, depth: int) -> Iterator:
-    """Run `it` on a background thread, `depth` items ahead of the
-    consumer; an error in `it` is re-raised on the consumer side."""
-    q: "queue.Queue" = queue.Queue(maxsize=depth)
-    sentinel = object()
-    err: list = []
+class Prefetcher:
+    """Runs the iterator `it` on a daemon thread, `depth` items ahead of the
+    consumer. An error in `it` is re-raised by `next` (a swallowed error
+    would silently truncate the dataset); `close()` stops the thread, after
+    the item it is producing."""
 
-    def worker():
+    _DONE = object()
+
+    def __init__(self, it: Iterator, depth: int):
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._err: list = []
+        self._thread = threading.Thread(target=self._run, args=(it,), daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _run(self, it: Iterator) -> None:
         try:
             for item in it:
-                q.put(item)
-        except BaseException as e:  # re-raised on the consumer side: a
-            err.append(e)          # swallowed error silently truncates
-        finally:                   # the dataset
-            q.put(sentinel)
+                if not self._put(item):
+                    return
+        except BaseException as e:  # re-raised on the consumer side
+            self._err.append(e)
+        self._put(self._DONE)
 
-    threading.Thread(target=worker, daemon=True).start()
+    def __iter__(self) -> "Prefetcher":
+        return self
 
-    def drained():
-        while True:
-            item = q.get()
-            if item is sentinel:
-                if err:
-                    raise err[0]
-                return
-            yield item
+    def __next__(self):
+        item = self._q.get()
+        if item is self._DONE:
+            self._q.put(item)  # a later next() ends too
+            if self._err:
+                raise self._err[0]
+            raise StopIteration
+        return item
 
-    return drained()
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()

@@ -1,30 +1,36 @@
-"""The eval mapper: a YTVIS video record -> its frames at the test size.
+"""The clip mappers: a YTVIS video record -> one sample.
 
-Counterpart of `s2d_tpu/data/mapper.py:ClipMapper` with is_train=False and
-its resize (`s2d_tpu/data/augment.py:resize_shortest_edge`, `_resize`):
-every frame of the video is read as RGB and resized so that its shortest
-edge is MIN_SIZE_TEST, capped at MAX_SIZE_TEST, bilinear (cv2
-INTER_LINEAR), giving uint8 (T, H, W, 3). The evaluator scores against the
-record's own RLEs, so the eval mapper decodes no target masks. The train
-mapper waits for the train CLI (ROADMAP queue 1).
+`ClipMapper` is the port of `s2d_tpu/data/mapper.py:ClipMapper` in train
+mode: `dense_frame_selection` (a random window of SAMPLING_FRAME_NUM
+consecutive frames in which some instance is annotated throughout), else
+`sparse_frame_selection` around a random reference frame; the clip
+augmentation of `augment.py`; per-frame instance masks with stable
+instance slots (a frame without a mask gives an empty one), padded to
+`max_instances` with a validity mask; the frames as float32. It draws from its `RandomState` in the JAX mapper's order, so one seed
+gives the same clip on both. The frames come from `read_frames(record,
+indices)`, by default the record's image files; a host without an image
+library passes its own (the card's machine has neither cv2 nor PIL).
+
+`EvalMapper` is the evaluator's mapper (`evaluation/evaluator.py`): every
+frame of the video, read as RGB and resized with cv2 (INTER_LINEAR), as
+the JAX mapper does, to (T, H, W, 3) uint8; it decodes no target masks
+(the evaluator scores against the record's own RLEs). A host without cv2
+passes its frames to `evaluate_dataset(mapper=...)`.
 
 cv2 or PIL is imported only where a frame is read from an image file, and
-cv2 where a frame is resized, as the JAX mapper requires it: a host
-without cv2 passes its frames to `evaluate_dataset(mapper=...)`.
+cv2 where `EvalMapper` resizes.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-
-def resize_shortest_edge(h: int, w: int, short: int, max_size: int) -> Tuple[int, int]:
-    scale = short / min(h, w)
-    if max(h, w) * scale > max_size:
-        scale = max_size / max(h, w)
-    return int(h * scale + 0.5), int(w * scale + 0.5)
+from ..config import Config
+from . import rle as rle_codec
+from .augment import ClipAugConfig, augment_clip, resize_shortest_edge
 
 
 def _cv2():
@@ -99,4 +105,154 @@ class EvalMapper:
             "height": record["height"],
             "width": record["width"],
             "selected_idx": list(range(record["length"])),
+        }
+
+
+@dataclasses.dataclass
+class MapperConfig:
+    sampling_frame_num: int = 3
+    sampling_frame_range: int = 20
+    sampling_frame_shuffle: bool = False
+    dense_selection: bool = True
+    max_instances: int = 40
+    disentangle: bool = False  # a second, differently augmented view (not ported)
+    aug: ClipAugConfig = dataclasses.field(default_factory=ClipAugConfig)
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "MapperConfig":
+        """The train mapper's configuration."""
+        inp = cfg.input
+        aug = ClipAugConfig(
+            min_sizes=inp.min_size_train, max_size=inp.max_size_train,
+            crop_enabled=inp.crop.enabled, crop_range=tuple(inp.crop.size),
+            brightness="brightness" in inp.augmentations,
+            contrast="contrast" in inp.augmentations,
+            saturation="saturation" in inp.augmentations,
+            rotation="rotation" in inp.augmentations,
+        )
+        return cls(
+            sampling_frame_num=inp.sampling_frame_num,
+            sampling_frame_range=inp.sampling_frame_range,
+            sampling_frame_shuffle=inp.sampling_frame_shuffle,
+            dense_selection=inp.dense_annotation_selection,
+            disentangle=inp.disentangle_distillation_loader,
+            # targets must fit in the query set (the matcher needs N <= Q)
+            max_instances=min(40, cfg.model.mask_former.num_object_queries),
+            aug=aug,
+        )
+
+
+def dense_frame_selection(
+    rng: np.random.RandomState,
+    anno_frames: Dict[int, List[int]],  # instance id -> frames with a mask
+    video_length: int,
+    num_frames: int,
+    frame_range: int,
+) -> List[int]:
+    windows = []
+    for frames in anno_frames.values():
+        frames = sorted(frames)
+        for i in range(len(frames) - num_frames + 1):
+            if frames[i + num_frames - 1] - frames[i] == num_frames - 1:
+                windows.append(list(range(frames[i], frames[i] + num_frames)))
+    if windows:
+        return windows[rng.randint(len(windows))]
+    return sparse_frame_selection(rng, video_length, num_frames, frame_range)
+
+
+def sparse_frame_selection(
+    rng: np.random.RandomState, video_length: int, num_frames: int, frame_range: int
+) -> List[int]:
+    ref = rng.randint(video_length)
+    lo = max(0, ref - frame_range)
+    hi = min(video_length, ref + frame_range + 1)
+    candidates = [i for i in range(lo, hi) if i != ref]
+    k = min(num_frames - 1, len(candidates))
+    picked = list(rng.choice(np.asarray(candidates), k, replace=False)) if k else []
+    selected = sorted(picked + [ref])
+    while len(selected) < num_frames:  # degenerate short videos: repeat ref
+        selected.append(ref)
+    return sorted(selected)
+
+
+def _decode_segmentation(seg, h: int, w: int) -> np.ndarray:
+    if seg is None:
+        return np.zeros((h, w), bool)
+    if isinstance(seg, dict):
+        return rle_codec.decode(seg)
+    return rle_codec.polygons_to_mask(seg, h, w)
+
+
+def read_record_frames(record: dict, indices: Sequence[int]) -> List[np.ndarray]:
+    """The record's frames at `indices`, read from its image files."""
+    return [load_image_robust(record["file_names"][i]) for i in indices]
+
+
+class ClipMapper:
+    """Maps a YTVIS record to one fixed-shape train sample: {"video_id",
+    "image" (T, H, W, 3) float32, "masks" (max_instances, T, H, W) bool,
+    "valid", "labels", "height", "width", "selected_idx"}."""
+
+    def __init__(self, cfg: MapperConfig, seed: int = 0,
+                 read_frames: Optional[Callable[[dict, Sequence[int]], List[np.ndarray]]] = None):
+        if cfg.disentangle:
+            raise NotImplementedError(
+                "the disentangled distillation view (INPUT.DISENTANGLE_DISTILLATION_LOADER) "
+                "is not ported yet (ROADMAP queue 1, item 6)")
+        self.cfg = cfg
+        self.rng = np.random.RandomState(seed)
+        self.read_frames = read_frames or read_record_frames
+
+    def __call__(self, record: dict) -> dict:
+        cfg = self.cfg
+        length = record["length"]
+        h, w = record["height"], record["width"]
+        annos = record.get("annotations", [])
+
+        anno_frames = {
+            o["id"]: [i for i, s in enumerate(o["segmentations"]) if s is not None]
+            for o in annos
+        }
+        anno_frames = {k: v for k, v in anno_frames.items() if v}
+        if cfg.dense_selection and anno_frames:
+            selected = dense_frame_selection(
+                self.rng, anno_frames, length, cfg.sampling_frame_num, cfg.sampling_frame_range)
+        else:
+            selected = sparse_frame_selection(
+                self.rng, length, cfg.sampling_frame_num, cfg.sampling_frame_range)
+
+        frames = [np.asarray(f) for f in self.read_frames(record, selected)]
+
+        # instances with any annotation in the selected frames keep a slot
+        kept = [o for o in annos if any(o["segmentations"][i] is not None for i in selected)]
+        kept = kept[: cfg.max_instances]
+        masks = np.zeros((len(kept), len(selected), h, w), bool)
+        labels = np.zeros((len(kept),), np.int64)
+        for n, o in enumerate(kept):
+            labels[n] = o["category_id"]
+            for ti, fi in enumerate(selected):
+                seg = o["segmentations"][fi]
+                if seg is not None:
+                    masks[n, ti] = _decode_segmentation(seg, h, w)
+
+        frames, masks = augment_clip(self.rng, frames, masks, cfg.aug)
+        t = len(frames)
+        nh, nw = frames[0].shape[:2]
+        masks_padded = np.zeros((cfg.max_instances, t, nh, nw), bool)
+        valid = np.zeros((cfg.max_instances,), bool)
+        labels_padded = np.zeros((cfg.max_instances,), np.int64)
+        if masks.shape[0]:
+            k = masks.shape[0]
+            masks_padded[:k] = masks
+            valid[:k] = True
+            labels_padded[:k] = labels[:k]
+        return {
+            "video_id": record["video_id"],
+            "image": np.stack(frames).astype(np.float32),
+            "masks": masks_padded,
+            "valid": valid,
+            "labels": labels_padded,
+            "height": record["height"],
+            "width": record["width"],
+            "selected_idx": selected,
         }

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..data import rle as rle_codec
-from ..data.loader import FinalizeThread, _prefetch
+from ..data.loader import FinalizeThread, Prefetcher
 from ..data.mapper import EvalMapper
 from ..data.ytvis import get_dataset
 from .ytvos_eval import evaluate_vis
@@ -184,9 +184,10 @@ def evaluate_dataset(
         stage["rle_encode"] += time.perf_counter() - t2
 
     fin = FinalizeThread(finalize, depth=QUEUE_DEPTH)
+    mapped = Prefetcher(timed_map(), QUEUE_DEPTH)
     start = time.perf_counter()
     try:
-        for record, (frames, frame_valid, ready), t, image_hw in _prefetch(timed_map(), QUEUE_DEPTH):
+        for record, (frames, frame_valid, ready), t, image_hw in mapped:
             t_disp = time.perf_counter()
             if ready is not None:
                 main = torch.cuda.current_stream(device)
@@ -205,6 +206,7 @@ def evaluate_dataset(
             stage["put_wait"] += time.perf_counter() - t_put
             gt_annotations.extend(collect_gt([record]))
     finally:
+        mapped.close()
         t_close = time.perf_counter()
         fin.close()
         stage["put_wait"] += time.perf_counter() - t_close

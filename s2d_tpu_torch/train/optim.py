@@ -78,6 +78,27 @@ class KDOptimizer:
         self.count = 0  # Adam's update count (also the schedule's)
         self.mini_step = 0
 
+    def state_dict(self) -> dict:
+        """Adam's moments, the accumulator (ACCUM_ITER > 1), the update count
+        and the micro-step; the tensors in parameter order, by reference."""
+        return {"names": list(self.names), "mu": list(self.mu), "nu": list(self.nu),
+                "acc": None if self.acc is None else list(self.acc),
+                "count": self.count, "mini_step": self.mini_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict` of an optimizer over the same parameters in."""
+        if list(state["names"]) != self.names:
+            raise ValueError("the optimizer state names other parameters than this optimizer's")
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("the optimizer state and this optimizer differ in ACCUM_ITER")
+        for mine, theirs in ((self.mu, state["mu"]), (self.nu, state["nu"]),
+                             (self.acc or [], state["acc"] or [])):
+            for dst, src in zip(mine, theirs, strict=True):
+                dst.copy_(src)
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+
     @torch.no_grad()
     def clip_gradients(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """optax.clip_by_global_norm: scale by max_norm / norm when the

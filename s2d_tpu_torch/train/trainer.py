@@ -29,6 +29,7 @@ import copy
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -48,6 +49,28 @@ class TrainState:
     student: VideoMaskFormer
     teacher: VideoMaskFormer
     optimizer: KDOptimizer
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds (`checkpoint/io.py`); tensors by reference."""
+        return {"step": self.step, "student": self.student.state_dict(),
+                "teacher": self.teacher.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a `state_dict` in, in place, onto this state's device."""
+        self.student.load_state_dict(state["student"])
+        self.teacher.load_state_dict(state["teacher"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of train step `step`'s random draws (dropout, point
+    sampling), a function of (seed, step) only, as JAX's
+    `fold_in(PRNGKey(seed), step)`: a resumed run draws at each step what an
+    uninterrupted one draws there."""
+    entropy = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        int(entropy[0]) | (int(entropy[1] & 0x7FFFFFFF) << 32))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,32 +1,49 @@
-"""The video evaluator CLI of the port: the `--eval-only` part of
-`tools/train_net_video.py`.
+"""The video trainer and evaluator CLI of the port, as
+`tools/train_net_video.py` for one process:
 
-    python -m s2d_tpu_torch.train_net_video --eval-only \
-        [--config-file cfg.yaml] [--weights model.pth] [--max-videos N] \
-        [--device cuda] [--seed 0] [KEY VALUE ...]
+    python -m s2d_tpu_torch.train_net_video --config-file cfg.yaml \
+        [--resume] [--eval-only] [--weights model.pth] [--max-videos N] \
+        [--profile-dir DIR] [--profile-steps N] [--device cuda] [--seed S] \
+        [KEY VALUE ...]
 
-For every dataset of DATASETS.TEST (registered names resolve under
-$S2D_DATASETS or $DETECTRON2_DATASETS, as in `s2d_tpu/data/ytvis.py`) it
-runs `evaluation.evaluator.evaluate_dataset`, writes
-`<OUTPUT_DIR>/results.json` and prints the AP metrics, the frames/s and the
-per-stage seconds. On a CUDA device the model runs the K1 and K3 kernels
-and NMS runs K4. The weights are picked as `tools/train_net_video.py` picks
-them: MODEL.WEIGHT_LIST, when all its files exist, merges a student (the
-first file) and a teacher (the last); else --weights or MODEL.WEIGHTS, a
-reference .pth/.pkl of a student and a teacher (or of one network), or a
-backbone-only checkpoint grafted into the seeded init (see
-`checkpoint/torch_import.py`). MODEL.MASK_FORMER.TEST.EVAL_STUDENT picks
-the network evaluated. An .npz of the JAX package's flattened flax params
-loads too (one network, whatever the flag says). Without weights, or when
-the file is missing (a warning), the model is initialised from --seed.
+Weights are picked as `tools/train_net_video.py` picks them:
+MODEL.WEIGHT_LIST, when all its files exist, merges a student (the first
+file) and a teacher (the last); else --weights or MODEL.WEIGHTS, a
+reference .pth/.pkl of a student and a teacher (or of one network, for
+both), or a backbone-only checkpoint grafted into the seeded init (see
+`checkpoint/torch_import.py`). An .npz of the JAX package's flattened flax
+params loads too (one network). Without weights, or when the file is
+missing (a warning), the networks are initialised from the seed (--seed,
+else SEED, else 0).
 
-Training is not ported to this CLI yet (ROADMAP queue 1, item 6), and
-neither is the frame-parallel eval (`--time-parallel`, queue 1, item 8):
-both raise.
+--eval-only: for every dataset of DATASETS.TEST (registered names resolve
+under $S2D_DATASETS or $DETECTRON2_DATASETS) `evaluation.evaluator.
+evaluate_dataset` writes `<OUTPUT_DIR>/results.json`, prints the AP
+metrics, the frames/s and the per-stage seconds, and checks
+TEST.EXPECTED_RESULTS (`evaluation/verify.py`). MODEL.MASK_FORMER.TEST.
+EVAL_STUDENT picks the network evaluated. On a CUDA device the model runs
+the K1 and K3 kernels and NMS runs K4.
+
+Without --eval-only it trains (`train`): the KD train state, --resume from
+the latest checkpoint of `<OUTPUT_DIR>/checkpoints`, the train loader over
+DATASETS.TRAIN with the clip mapper and, with DATALOADER.COPY_PASTE, the
+clip copy-paste; SOLVER.MAX_ITER steps of `train.trainer.make_train_step`
+(K1, K2 and K5 on a CUDA device), the metrics of each step read back after
+the next is dispatched into `<OUTPUT_DIR>/metrics.json`, a checkpoint every
+SOLVER.CHECKPOINT_PERIOD steps and at the end, an evaluation of DATASETS.TEST
+every TEST.EVAL_PERIOD steps into `<OUTPUT_DIR>/inference_<step>`, and with
+--profile-dir a `torch.profiler` trace of steps [10, 10 + --profile-steps)
+of the run. A caller without an image library passes `train(...,
+mapper=, eval_mapper=)` its own frames.
+
+Not ported (ROADMAP queue 1): the COCO pseudo-clip training sets (item 8),
+--model-parallel > 1, --time-parallel and more than one process (item 7):
+they raise NotImplementedError.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -34,20 +51,27 @@ from .config import from_s2d_config, load_config_tree
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="s2d_tpu_torch video evaluator")
+    parser = argparse.ArgumentParser(description="s2d_tpu_torch video trainer and evaluator")
     parser.add_argument("--config-file", default="", metavar="FILE")
-    parser.add_argument(
-        "--eval-only", action="store_true",
-        help="evaluate DATASETS.TEST (required: the train loop is not ported to this CLI)")
+    parser.add_argument("--eval-only", action="store_true", help="evaluate DATASETS.TEST only")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the latest checkpoint under OUTPUT_DIR/checkpoints")
     parser.add_argument("--max-videos", type=int, default=None, help="cap eval videos (debug)")
     parser.add_argument(
         "--weights", default="",
         help="a reference .pth/.pkl (MODEL.MASK_FORMER.TEST.EVAL_STUDENT picks the student "
-             "or the teacher) or an .npz of flattened flax params (one network)")
+             "or the teacher to evaluate) or an .npz of flattened flax params (one network)")
+    parser.add_argument("--profile-dir", default="",
+                        help="write a torch.profiler trace of steps [10, 10 + --profile-steps) "
+                             "into this directory")
+    parser.add_argument("--profile-steps", type=int, default=3)
     parser.add_argument("--time-parallel", action="store_true",
                         help="not ported: frame-parallel eval over several devices")
+    parser.add_argument("--model-parallel", type=int, default=1,
+                        help="not ported beyond 1: tensor-parallel degree")
     parser.add_argument("--device", default="cuda", help="cuda or cpu")
-    parser.add_argument("--seed", type=int, default=0, help="init seed without --weights")
+    parser.add_argument("--seed", type=int, default=None,
+                        help="the run's seed (init, loader, draws); default SEED, else 0")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                         help="config overrides: KEY VALUE pairs")
     return parser.parse_args(argv)
@@ -75,21 +99,65 @@ def eval_weights(cfg, weights: str, seed: int = 0):
     return weights or None
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    if not args.eval_only:
-        raise NotImplementedError(
-            "training through this CLI is not ported yet (ROADMAP queue 1, item 6); "
-            "run with --eval-only, or use train.trainer.make_train_step")
+def train_weights(cfg, weights: str, seed: int = 0):
+    """(student, teacher) weights of the train state, as
+    `tools/train_net_video.py:93-123` picks them: MODEL.WEIGHT_LIST's first
+    and last file when all exist; else `weights` for both (each network of a
+    student/teacher checkpoint, the one network of a plain one, or a
+    backbone grafted into the seeded init); else (None, None), a seeded init
+    with the teacher a copy of the student."""
+    weight_list = cfg.model.weight_list
+    if weight_list and all(os.path.exists(p) for p in weight_list):
+        print(f"Merged checkpoints student={weight_list[0]} teacher={weight_list[-1]}")
+        return weight_list[0], weight_list[-1]
+    if weights and os.path.exists(weights):
+        print(f"Loading weights {weights}")
+        return weights, weights
+    if weights:
+        print(f"WARNING: weights {weights!r} not found; random init (seed {seed})")
+    return None, None
+
+
+def train_datasets(names):
+    """The records of the registered YTVIS sets `names`, concatenated."""
+    from .data.ytvis import get_dataset
+
+    dicts = []
+    for name in names:
+        try:
+            records, _ = get_dataset(name)
+        except KeyError:
+            raise NotImplementedError(
+                f"dataset {name!r} is not a registered YTVIS set; the COCO image sets that "
+                "the JAX trainer turns into pseudo-clips (s2d_tpu/data/coco.py, "
+                "image_datasets.coco_to_clip_record) are not ported yet (ROADMAP queue 1, "
+                "item 8)") from None
+        dicts.extend(records)
+    return dicts
+
+
+def _check_single_process(args) -> None:
     if args.time_parallel:
         raise NotImplementedError(
-            "--time-parallel (frame-parallel eval) is not ported yet (ROADMAP queue 1, item 8)")
+            "--time-parallel (frame-parallel eval) is not ported yet (ROADMAP queue 1, item 7)")
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel > 1 is not ported yet (ROADMAP queue 1, item 7)")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "training or evaluating in more than one process (DDP) is not ported yet "
+            "(ROADMAP queue 1, item 7)")
+
+
+def evaluate(cfg, args, seed: int) -> int:
+    """--eval-only: every dataset of DATASETS.TEST, checked against
+    TEST.EXPECTED_RESULTS."""
     from .demo_video import VideoPredictor
     from .evaluation.evaluator import evaluate_dataset
+    from .evaluation.verify import verify_results
 
-    cfg = load_config_tree(args.config_file or None, args.opts)
-    weights = eval_weights(cfg, args.weights or cfg.model.weights, args.seed)
-    predictor = VideoPredictor(from_s2d_config(cfg), weights=weights, seed=args.seed,
+    weights = eval_weights(cfg, args.weights or cfg.model.weights, seed)
+    predictor = VideoPredictor(from_s2d_config(cfg), weights=weights, seed=seed,
                                device=args.device)
     if predictor.loaded:
         print(f"weights: {predictor.loaded}")
@@ -97,7 +165,150 @@ def main(argv=None) -> int:
         metrics = evaluate_dataset(predictor, dataset_name, output_dir=cfg.output_dir,
                                    max_videos=args.max_videos)
         print(f"[{dataset_name}] " + "  ".join(f"{k}: {v:.4f}" for k, v in metrics.items()))
+        if cfg.test.expected_results:
+            verify_results(cfg.test.expected_results, metrics)
     return 0
+
+
+def _upload(batch, device):
+    """A collated numpy batch -> (images, masks, valid) on `device`, from
+    pinned memory and asynchronously on a CUDA device."""
+    import torch
+
+    out = []
+    for key in ("images", "masks", "valid"):
+        t = torch.from_numpy(batch[key])
+        out.append(t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t)
+    return out
+
+
+def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
+    """The train loop of `tools/train_net_video.py:223-523` for one process.
+
+    mapper: record -> train sample (default: `data.mapper.ClipMapper` of
+    the config, reading the record's frame files); eval_mapper: passed to
+    `evaluate_dataset` for the periodic eval (default: its `EvalMapper`)."""
+    import numpy as np
+    import torch
+
+    from .checkpoint.io import CheckpointWriter, latest_step, restore_checkpoint
+    from .data.loader import train_loader
+    from .data.mapper import ClipMapper, MapperConfig
+    from .train import trainer
+    from .utils.events import MetricLogger
+    from .utils.profiling import StepTimer, trace
+
+    device = torch.device(args.device)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    dicts = train_datasets(cfg.datasets.train)
+    if mapper is None:
+        mapper = ClipMapper(MapperConfig.from_config(cfg), seed=seed)
+    student_w, teacher_w = train_weights(cfg, args.weights or cfg.model.weights, seed)
+    state = trainer.create_train_state(cfg, seed=seed, device=device, params=student_w,
+                                       teacher_params=teacher_w)
+    ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
+    if args.resume:
+        step = latest_step(ckpt_dir)
+        if step is not None:
+            restore_checkpoint(ckpt_dir, state, step)
+            print(f"Resumed from checkpoint step {step}")
+    step_fn = trainer.make_train_step(cfg)
+
+    batch_transform = None
+    if cfg.dataloader.copy_paste:
+        from .data.copy_paste import apply_clip_copy_paste
+
+        cp_rng = np.random.RandomState(seed + 7)
+        dl = cfg.dataloader
+        batch_transform = lambda samples: apply_clip_copy_paste(  # noqa: E731
+            samples, cp_rng, rate=dl.copy_paste_rate, random_num=dl.copy_paste_random_num,
+            min_ratio=dl.copy_paste_min_ratio, max_ratio=dl.copy_paste_max_ratio,
+            densify_sparse=dl.copy_paste_densify_sparse)
+
+    def run_eval(step):
+        """Every test dataset with the current student (EVAL_STUDENT) or
+        teacher, into OUTPUT_DIR/inference_<step>; metrics as <dataset>/<key>."""
+        from .demo_video import VideoPredictor
+        from .evaluation.evaluator import evaluate_dataset
+
+        vcfg = from_s2d_config(cfg)
+        network = state.student if vcfg.eval_student else state.teacher
+        predictor = VideoPredictor(vcfg, weights=network.state_dict(), device=device)
+        out = {}
+        for dataset_name in cfg.datasets.test:
+            m = evaluate_dataset(predictor, dataset_name,
+                                 output_dir=os.path.join(cfg.output_dir, f"inference_{step}"),
+                                 max_videos=args.max_videos, mapper=eval_mapper)
+            print(f"[eval @{step}] [{dataset_name}] "
+                  + "  ".join(f"{k}: {v:.4f}" for k, v in m.items()))
+            out.update({f"{dataset_name}/{k}": v for k, v in m.items()})
+        return out
+
+    logger = MetricLogger(cfg.output_dir)
+    start_iter = state.step
+    ckpt_period = max(cfg.solver.checkpoint_period, 1)
+    eval_period = cfg.test.eval_period
+    timer = StepTimer()
+    pending = None  # (iteration, device metrics, host times) awaiting readback
+
+    def flush_pending():
+        # the metrics of step N are read after step N + 1 is dispatched, so
+        # the host's batch of N + 1 overlaps the device's step N
+        nonlocal pending
+        if pending is None:
+            return
+        p_it, p_metrics, times = pending
+        pending = None
+        logger.log(p_it, {**{k: float(v) for k, v in p_metrics.items()}, **times})
+
+    loader = train_loader(dicts, mapper, cfg.solver.ims_per_batch, cfg.model.pixel_mean,
+                          cfg.model.pixel_std, seed=seed, batch_transform=batch_transform)
+    writer = CheckpointWriter(ckpt_dir)
+    profiled = contextlib.ExitStack()
+    try:
+        for it in range(start_iter, cfg.solver.max_iter):
+            if args.profile_dir and args.profile_steps > 0:
+                if it == start_iter + 10:
+                    profiled.enter_context(trace(args.profile_dir))
+                elif it == start_iter + 10 + args.profile_steps:
+                    profiled.close()
+                    print(f"profiler trace written to {args.profile_dir}")
+            timer.start()
+            batch = next(loader)
+            timer.data_done()
+            images, masks, valid = _upload(batch, device)
+            gen = trainer.step_generator(seed + 1, state.step, device)
+            state, metrics = step_fn(state, images, masks, valid, generator=gen)
+            timer.step_done()
+            flush_pending()
+            pending = (it, metrics, timer.metrics())
+            done = it + 1 == cfg.solver.max_iter
+            if (it + 1) % ckpt_period == 0 or done:
+                flush_pending()  # metrics.json stays in order before a save
+                writer.save(it + 1, state)
+            if eval_period > 0 and ((it + 1) % eval_period == 0 or done):
+                flush_pending()
+                logger.log(it, run_eval(it + 1))
+        flush_pending()
+    finally:
+        profiled.close()
+        loader.close()
+        logger.close()
+        writer.close()
+    return 0
+
+
+def main(argv=None, mapper=None, eval_mapper=None) -> int:
+    args = parse_args(argv)
+    _check_single_process(args)
+    cfg = load_config_tree(args.config_file or None, args.opts)
+    seed = args.seed if args.seed is not None else max(cfg.seed, 0)
+    if args.eval_only:
+        return evaluate(cfg, args, seed)
+    from .train.scaling import apply_accum_lr_scale, auto_scale_workers
+
+    cfg = apply_accum_lr_scale(auto_scale_workers(cfg, 1))
+    return train(cfg, args, seed, mapper=mapper, eval_mapper=eval_mapper)
 
 
 if __name__ == "__main__":

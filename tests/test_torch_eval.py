@@ -397,9 +397,11 @@ def test_eval_cli_on_cpu(tmp_path, monkeypatch, fresh_registries, capsys):
     assert "[ytvis_2021_valid_cls_agnostic] AP: " in printed and "frames_per_second" in printed
     results = json.loads((out / "results.json").read_text())
     assert results and all(len(r["segmentations"]) == 3 for r in results)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        train_net_video.main(argv)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    # training is ported: a set that is no registered YTVIS set raises
+    # before the train state is built (the COCO pseudo-clips are not ported)
+    with pytest.raises(NotImplementedError, match="COCO"):
+        train_net_video.main([*argv, "DATASETS.TRAIN", '("coco_2017_train",)'])
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         train_net_video.main(["--eval-only", "--time-parallel", *argv])
 
 
