@@ -107,7 +107,26 @@
    enters through --resume, then resumes to MAX_ITER 6; checks metrics.json,
    the K1/K2/K5 launches of each step, the evals' K1/K3/K4 launches and
    results.json, the checkpoints and each resumed state bit for bit, and
-   prints the step time, the data-time share and the peak device memory.
+   prints the step time, the data-time share and the peak device memory;
+13. drives keymask discovery (`s2d_tpu_torch.keymask_ident.main`, see
+   `keymask_path`) at full width: 2 synthetic videos of 24 frames at
+   720x1280 (YTVIS 2021's common frame size), each 5 textured objects
+   moving at integer velocities over a textured background (one leaves the
+   frame), written as PNG frames and multi-colour stage-1 mask PNGs with 2
+   of each object's masks dropped and a spurious blob a frame, through the
+   CLI with --grid-size 50 --merge (the correlation tracker on the card);
+   checks 2 videos ok and none failed, a probe of known motion tracked
+   exactly, every object covered by a discovered group (mask IoU >= 0.5 on
+   >= 80% of the frames it is in), dataset.json registered and one record
+   through the train ClipMapper; then the full-width CoTracker (seeded
+   random weights, its delta head scaled so that the visibilities do not
+   saturate: `unsaturate`) over video 1's seeds, one set held to the same
+   net's CPU run (tracks within 4e-3 px, visibility within 1e-5, >= 90% of
+   the visibilities in (0.01, 0.99)); prints each stage's seconds a video
+   and each tracker's point-frames/s, as the CLI and the tracker count
+   them, the peak memory, the NCC match step's device time at the
+   visibility stage's points, and the phase's seconds. The set is written
+   under build/ and removed at the end of the phase.
 With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
@@ -130,6 +149,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -169,6 +189,19 @@ TRAIN_SET_VIDEOS, TRAIN_SET_LENGTH, TRAIN_SET_INSTANCES = 6, 10, (3, 8)
 CLI_EVAL_LENGTHS = (8, 5)
 CLI_ITERS = (4, 6)
 MIN_TRACKS = 10  # NMS survivors the eval phase needs in each video
+# phase 13: keymask discovery's synthetic set (videos, frames a video,
+# objects a video), the CLI's grid, and a group's least share of an
+# object's frames at mask IoU >= 0.5
+KEYMASK_VIDEOS, KEYMASK_T, KEYMASK_OBJECTS, KEYMASK_GRID = 2, 24, 5, 50
+KEYMASK_COVERAGE = 0.8
+# the CoTracker's card run against its CPU run: the scale of the random
+# net's delta head (see `unsaturate`), the least share of visibilities in
+# (0.01, 0.99), and the largest differences allowed (absolute: a relative
+# part would grow with the tracks)
+COTRACKER_DELTA_SCALE = 0.01
+COTRACKER_VIS_INNER = 0.9
+COTRACKER_TRACK_ATOL = 4e-3  # px of the 720x1280 frame
+COTRACKER_VIS_ATOL = 1e-5
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM3
 # bytes/s, float32 operations/s outside the tensor cores, TF32 operations/s
 # on the tensor cores
@@ -1654,13 +1687,299 @@ def flat_state(sd: dict) -> dict:
     return flat
 
 
+def keymask_scene(rng, frame_hw=OUT_SIZE, length=KEYMASK_T):
+    """One synthetic video for keymask discovery: (frames (T, H, W, 3) uint8,
+    stage-1 mask PNGs (T, H, W, 3) uint8, the objects' boxes (T, objects, 4)
+    as y0, x0, y1, x1 in the frame or empty, velocities (objects, 2) as dx,
+    dy). Each object is a textured rectangle in its own horizontal band (no
+    occlusion) moving at an integer velocity over a static textured
+    background; the last one reaches the frame's right edge at frame T/3
+    and leaves through it. Each object's mask is dropped from the PNGs on 2 frames,
+    and each frame's PNG has a spurious blob under the objects."""
+    h, w = frame_hw
+    scale = w / OUT_SIZE[1]
+    frames = np.repeat(rng.randint(0, 256, (1, h, w, 3), dtype=np.uint8), length, axis=0)
+    pngs = np.zeros((length, h, w, 3), np.uint8)
+    band = h // KEYMASK_OBJECTS
+    boxes = np.zeros((length, KEYMASK_OBJECTS, 4), np.int64)
+    velocities = np.zeros((KEYMASK_OBJECTS, 2), np.int64)
+    yy, xx = np.mgrid[:h, :w]
+    for fi in range(length):  # the blobs first: the objects are drawn over them
+        cy, cx, r = rng.randint(0, h), rng.randint(0, w), max(3, int(0.04 * h))
+        pngs[fi][(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = (255, 255, 255)
+    for k in range(KEYMASK_OBJECTS):
+        oh, ow = int(band * rng.uniform(0.55, 0.75)), int(w * rng.uniform(0.09, 0.14))
+        texture = rng.randint(0, 256, (oh, ow, 3), dtype=np.uint8)
+        color = np.asarray([(60 * k + 40) % 256, (90 * k + 200) % 256, 255 - 40 * k], np.uint8)
+        if k == KEYMASK_OBJECTS - 1:  # the leaver: at the right edge by frame T/3
+            vx, vy = max(1, round(10 * scale)), 0
+            x0 = w - ow - vx * (length // 3)
+        else:
+            vx = int(rng.choice([-1, 1])) * max(1, round(rng.randint(3, 7) * scale))
+            vy = int(rng.choice([-1, 0, 1])) * (band > oh + length + 4)
+            x0 = rng.randint(0, w - ow - abs(vx) * length) + (abs(vx) * length if vx < 0 else 0)
+        y0 = k * band + (band - oh) // 2 - vy * length // 2
+        velocities[k] = vx, vy
+        dropped = {(3 + 5 * k) % length, (13 + 7 * k) % length}
+        for fi in range(length):
+            ty, tx = y0 + vy * fi, x0 + vx * fi
+            a, b = max(tx, 0), min(tx + ow, w)
+            if a >= b:
+                continue  # out of the frame
+            frames[fi, ty:ty + oh, a:b] = texture[:, a - tx:b - tx]
+            boxes[fi, k] = ty, a, ty + oh, b
+            if fi not in dropped:
+                pngs[fi, ty:ty + oh, a:b] = color
+    return frames, pngs, boxes, velocities
+
+
+def probe_known_motion(dev, frames, boxes, velocities) -> int:
+    """Points of object 0's interior, seeded at the first and at the last
+    frame, must follow its velocity exactly (the float32 sums a match
+    makes, step by step). Returns the points tracked."""
+    from s2d_tpu_torch.keymask import CorrelationTracker, grid_points_in_mask
+
+    t, h, w = frames.shape[:3]
+    tracker = CorrelationTracker(device=dev)
+    step = velocities[0].astype(np.float32)
+    total = 0
+    for seed in (0, t - 1):
+        y0, x0, y1, x1 = boxes[seed, 0]
+        inner = np.zeros((h, w), bool)
+        inner[y0 + 6:y1 - 6, x0 + 6:x1 - 6] = True  # the template's window on the object
+        pts = grid_points_in_mask(inner, KEYMASK_GRID)
+        tracks, vis = tracker.track(frames, pts, seed)
+        want = np.repeat(pts[None], t, axis=0)
+        for fi in range(seed + 1, t):
+            want[fi] = want[fi - 1] + step
+        for fi in range(seed - 1, -1, -1):
+            want[fi] = want[fi + 1] + (-step)
+        if not np.array_equal(tracks, want) or not (vis > 0.5).all():
+            bad = np.argwhere((tracks != want).any(-1))
+            raise AssertionError(f"keymask probe (seed frame {seed}): {len(bad)} point-frames "
+                                 f"off the known motion {step.tolist()}, first {bad[:3].tolist()}; "
+                                 f"min visibility {vis.min():.3f}")
+        total += len(pts)
+    if not total:
+        raise AssertionError("keymask probe: no point in object 0's interior")
+    return total
+
+
+def object_coverage(annotation: dict, boxes, hw) -> np.ndarray:
+    """Per object, the best share over the video's groups of the frames the
+    object is in where the group's mask has IoU >= 0.5 with it."""
+    from s2d_tpu_torch.data import rle
+
+    h, w = hw
+    groups = [[None if s is None else rle.decode(s) for s in a["segmentations"]]
+              for a in annotation["annotations"]]
+    best = np.zeros(boxes.shape[1])
+    for k in range(boxes.shape[1]):
+        present = [fi for fi in range(len(boxes)) if boxes[fi, k, 2] > boxes[fi, k, 0]]
+        for masks in groups:
+            hits = 0
+            for fi in present:
+                if masks[fi] is None:
+                    continue
+                y0, x0, y1, x1 = boxes[fi, k]
+                inter = int(masks[fi][y0:y1, x0:x1].sum())
+                union = int(masks[fi].sum()) + (y1 - y0) * (x1 - x0) - inter
+                hits += inter >= 0.5 * union
+            best[k] = max(best[k], hits / len(present))
+    return best
+
+
+def keymask_path(dev, frame_hw=OUT_SIZE, length=KEYMASK_T, cotracker_check=True) -> None:
+    """Keymask discovery through its CLI, `s2d_tpu_torch.keymask_ident.main`,
+    on a synthetic set (`keymask_scene`) written under build/ with the port's
+    PNG codec and removed at the end; then the CoTracker over video 1's
+    seeds. See phase 13 of the module doc. A rehearsal off the card passes
+    a CPU `dev`, a smaller `frame_hw` and, to skip the CoTracker,
+    cotracker_check=False."""
+    started = time.perf_counter()
+    root = Path("build") / "chip_smoke_keymask"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _keymask_run(dev, root, frame_hw, length, cotracker_check)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"keymask phase: {time.perf_counter() - started:.1f} s")
+
+
+def unsaturate(net) -> None:
+    """Scales a random CoTracker's delta head by COTRACKER_DELTA_SCALE. At
+    the seeded init its visibility logits run from ~12 to over 100 (each
+    iteration adds a large delta), so every visibility is exactly 1 in
+    float32 and a comparison of two runs would compare constants; scaled,
+    the logits stay near 1 and the tracks within tens of pixels of the
+    queries."""
+    with torch.no_grad():
+        net.delta_head.weight.mul_(COTRACKER_DELTA_SCALE)
+        net.delta_head.bias.mul_(COTRACKER_DELTA_SCALE)
+
+
+def _keymask_run(dev, root: Path, frame_hw, length, cotracker_check) -> None:
+    from types import SimpleNamespace
+
+    from s2d_tpu_torch import keymask_ident
+    from s2d_tpu_torch.config import load_config_tree
+    from s2d_tpu_torch.data import ytvis
+    from s2d_tpu_torch.data.mapper import ClipMapper, MapperConfig
+    from s2d_tpu_torch.data.png import read_png, write_png
+    from s2d_tpu_torch.keymask import grid_points_in_mask
+    from s2d_tpu_torch.keymask.cotracker import build_cotracker
+
+    start = time.perf_counter()
+    rng = np.random.RandomState(SEED + 6)
+    scenes = {}
+    for v in range(KEYMASK_VIDEOS):
+        name = f"video{v}"
+        frames, pngs, boxes, velocities = keymask_scene(rng, frame_hw, length)
+        for sub, images in (("frames", frames), ("masks", pngs)):
+            (root / sub / name).mkdir(parents=True)
+            for fi, image in enumerate(images):
+                write_png(str(root / sub / name / f"{fi:05d}.png"), image)
+        scenes[name] = (frames, boxes, velocities)
+    print(f"keymask data: {KEYMASK_VIDEOS} videos of {length} frames at {frame_hw[0]}x"
+          f"{frame_hw[1]}, {KEYMASK_OBJECTS} objects a video, written as PNG in "
+          f"{time.perf_counter() - start:.1f} s (host)")
+
+    name0 = "video0"
+    start = time.perf_counter()
+    probed = probe_known_motion(dev, *scenes[name0])
+    print(f"keymask probe: {probed} points of {name0}'s object 0 (velocity "
+          f"{scenes[name0][2][0].tolist()}) tracked exactly from the first and the last frame "
+          f"in {time.perf_counter() - start:.2f} s")
+
+    # the CLI as shipped: it prints each video's stage seconds and its
+    # tracker's point-frames and seconds
+    out = root / "out"
+    argv = ["--frames-root", str(root / "frames"), "--masks-root", str(root / "masks"),
+            "--output-root", str(out), "--grid-size", str(KEYMASK_GRID), "--merge",
+            *(["--device", "cpu"] if dev.type == "cpu" else [])]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    log = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = keymask_ident.main(argv)
+    cli_s = time.perf_counter() - start
+    text = log.getvalue()
+    print(text, end="")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    summary = re.search(r"keymask_ident: (\d+) ok, (\d+) failed", text)
+    if rc != 0 or summary is None or summary.groups() != (str(KEYMASK_VIDEOS), "0"):
+        raise AssertionError(f"keymask CLI: exit {rc}, {summary and summary.group(0)}; "
+                             f"{KEYMASK_VIDEOS} ok and none failed expected")
+    stages = {m.group(1): {k: float(v) for k, v in re.findall(r"(\w+) ([\d.]+) s", m.group(2))}
+              for m in re.finditer(r"^(video\d+): (.*)$", text, re.M)}
+    point_frames, track_s, rate = (float(v) for v in re.search(
+        r"^tracker: (\d+) point-frames in ([\d.]+) s, (\d+) point-frames/s", text, re.M).groups())
+    print(f"keymask path: {cli_s:.2f} s for {KEYMASK_VIDEOS} videos through the CLI (reads "
+          f"included); per video " + "; ".join(
+              f"{n} " + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
+              for n, st in stages.items()))
+    print(f"  correlation tracker: {point_frames:.0f} point-frames in {track_s:.3f} s, "
+          f"{rate:.0f} point-frames/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+
+    if dev.type == "cuda":  # the NCC step's device time at the visibility call's points
+        from s2d_tpu_torch.keymask.tracker import PATCH, SEARCH, grey_video, match_step
+
+        inputs = keymask_ident.load_video_inputs(
+            SimpleNamespace(masks_root=str(root / "masks")), str(root / "frames" / name0))
+        pts = np.concatenate([p for p in (grid_points_in_mask(m, KEYMASK_GRID)
+                                          for masks in inputs["masks_per_frame"]
+                                          for m in masks.values()) if len(p) >= 4])
+        grey = grey_video(inputs["video"], dev)
+        pts_d = torch.from_numpy(pts).to(dev)
+        with torch.inference_mode():
+            step_ms = cuda_ms(lambda: match_step(grey[0], grey[1], pts_d, PATCH, SEARCH))
+        steps = 2 * (length - 1)
+        print(f"  NCC match step at {len(pts)} points (the visibility stage of {name0}): "
+              f"{step_ms:.3f} ms a transition (device), x {steps} transitions = "
+              f"{steps * step_ms / 1e3:.3f} s of that stage's {stages[name0]['visibility']:.3f} s")
+
+    # every planted object discovered
+    covered = {}
+    for name, (frames, boxes, _) in scenes.items():
+        annotation = json.loads((out / "annotations" / f"{name}.json").read_text())
+        covered[name] = object_coverage(annotation, boxes, frame_hw)
+        print(f"  {name}: {len(annotation['annotations'])} groups; best coverage of each "
+              f"object {', '.join(f'{c:.3f}' for c in covered[name])}")
+    short = {n: c.tolist() for n, c in covered.items() if (c < KEYMASK_COVERAGE).any()}
+    if short:
+        raise AssertionError(f"keymask: objects covered on < {KEYMASK_COVERAGE:.0%} of their "
+                             f"frames: {short}")
+
+    # the discovered set, as the train CLI reads it
+    dataset = out / "dataset.json"
+    ytvis.register_ytvis("chip_smoke_keymasks", str(dataset), str(root / "frames"),
+                         class_agnostic=True)
+    records, _ = ytvis.get_dataset("chip_smoke_keymasks")
+    record = max(records, key=lambda r: len(r["annotations"]))
+    mapper = ClipMapper(MapperConfig.from_config(load_config_tree(KD_CONFIG)), seed=SEED,
+                        read_frames=lambda r, idx: [read_png(r["file_names"][i]) for i in idx])
+    sample = mapper(record)
+    if not sample["valid"].any() or not np.isfinite(sample["image"]).all():
+        raise AssertionError(f"keymask: the train mapper found no instance in {record['video_id']}")
+    print(f"  dataset.json: {len(records)} videos, {sum(len(r['annotations']) for r in records)} "
+          f"annotations; a train clip of frames {sample['selected_idx']}, image "
+          f"{sample['image'].shape}, {int(sample['valid'].sum())} instances")
+
+    if cotracker_check:
+        name1 = f"video{KEYMASK_VIDEOS - 1}"
+        inputs = keymask_ident.load_video_inputs(
+            SimpleNamespace(masks_root=str(root / "masks")), str(root / "frames" / name1))
+        seeds = [(fi, grid_points_in_mask(m, KEYMASK_GRID))
+                 for fi, masks in enumerate(inputs["masks_per_frame"]) for m in masks.values()]
+        seeds = [(fi, pts) for fi, pts in seeds if len(pts) >= 4]
+        video = inputs["video"]
+        tracker = build_cotracker(device=dev, seed=SEED)
+        unsaturate(tracker.net)
+        results = tracker.track_batch(video, [p for _, p in seeds], [f for f, _ in seeds])
+        for (fi, pts), (tr, vi) in zip(seeds, results):
+            if not (np.isfinite(tr).all() and ((vi >= 0) & (vi <= 1)).all()):
+                raise AssertionError(f"cotracker: set of frame {fi}: non-finite tracks or "
+                                     "visibility out of [0, 1]")
+            np.testing.assert_allclose(tr[fi], pts, rtol=0, atol=1e-3)
+        pick = len(seeds) // 2
+        cpu_tracker = build_cotracker(device="cpu", seed=SEED)
+        unsaturate(cpu_tracker.net)
+        start = time.perf_counter()
+        ref_tracks, ref_vis = cpu_tracker.track(video, seeds[pick][1], seeds[pick][0])
+        cpu_s = time.perf_counter() - start
+        got_tracks, got_vis = results[pick]
+        track_err = float(np.abs(got_tracks - ref_tracks).max())
+        vis_err = float(np.abs(got_vis - ref_vis).max())
+        moved = float(np.abs(ref_tracks - seeds[pick][1][None]).max())
+        inner = float(((ref_vis > 0.01) & (ref_vis < 0.99)).mean())
+        print(f"  cotracker (full width, seeded random weights, delta head x "
+              f"{COTRACKER_DELTA_SCALE}): {len(seeds)} sets of "
+              f"{min(len(p) for _, p in seeds)}-{max(len(p) for _, p in seeds)} points over "
+              f"{name1}, {tracker.point_frames} point-frames in {tracker.seconds:.3f} s (encode "
+              f"included), {tracker.point_frames / tracker.seconds:.0f} point-frames/s, peak "
+              f"device memory {tracker.peak_bytes / 2**30:.2f} GiB; set {pick} against the CPU "
+              f"run ({cpu_s:.1f} s): tracks in x {ref_tracks[..., 0].min():.1f}.."
+              f"{ref_tracks[..., 0].max():.1f}, y {ref_tracks[..., 1].min():.1f}.."
+              f"{ref_tracks[..., 1].max():.1f} px, at most {moved:.1f} px from the queries, max "
+              f"|diff| {track_err:.3e} px; visibility {inner:.1%} in (0.01, 0.99), range "
+              f"{ref_vis.min():.3f}..{ref_vis.max():.3f}, max |diff| {vis_err:.3e}")
+        if inner < COTRACKER_VIS_INNER:
+            raise AssertionError(f"cotracker: {inner:.1%} of set {pick}'s visibilities in (0.01, "
+                                 f"0.99), < {COTRACKER_VIS_INNER:.0%}: the comparison would "
+                                 "compare saturated constants")
+        np.testing.assert_allclose(got_tracks, ref_tracks, rtol=0, atol=COTRACKER_TRACK_ATOL)
+        np.testing.assert_allclose(got_vis, ref_vis, rtol=0, atol=COTRACKER_VIS_ATOL)
+
+
 COMPARE_ORDER = ("parent", "change", "change", "parent")
 # the lines of a run's log that the comparison prints under the run's header
 COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per span",
                  "  K5 on", "  K5:", "  K6 empty vs", "  ms_deform_attn_bwd:", "  batched_auction:",
                  "  ms_deform_attn_fwd:", "eval path:", "K2 d", "K2 gradient hash", "build:",
                  "  K4 at N=50", "  greedy_nms:", "  K6 ", "checkpoint", "  EVAL_STUDENT",
-                 "train CLI")
+                 "train CLI", "keymask", "  correlation tracker", "  cotracker")
 
 
 def compare_checkouts(parent: Path, profile: bool) -> None:
@@ -1821,6 +2140,9 @@ def main(argv=None) -> int:
 
     # 12. the train CLI: loader, steps, checkpoints, --resume, periodic eval
     cli_launches = train_cli_path(dev, class_scale)
+
+    # 13. keymask discovery: the CLI, the trackers, the discovered set
+    keymask_path(dev)
 
     by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
                            "eval": eval_launches["k1_msda"], "train_cli": cli_launches["k1_msda"]},

@@ -5,6 +5,11 @@ exactly one port tensor:
 
   a/b/kernel (4-D, HWIO)  -> a.b.weight, transposed to OIHW
   a/b/kernel (2-D, in,out) -> a.b.weight, transposed to (out, in)
+  a/out/kernel (3-D, heads, head_dim, out) and a/b/kernel (3-D, in, heads,
+  head_dim): the output and input projections of flax's
+  MultiHeadDotProductAttention -> a.out.weight (out, heads*head_dim) and
+  a.b.weight (heads*head_dim, in), as torch Linears
+  a/b/bias (2-D, heads, head_dim) -> a.b.bias, flattened
   a/b/scale               -> a.b.weight (LayerNorm, GroupNorm, FrozenBN)
   any other leaf          -> its own name (bias, level_embed, query_feat,
                              in_proj_weight, ...)
@@ -12,7 +17,8 @@ exactly one port tensor:
 Input is the flax `variables` flattened to numpy with "/" separators, e.g.
 `{"/".join(k): np.asarray(v) for k, v in flax.traverse_util.flatten_dict(
 variables).items()}` (a leading "params/" is accepted), or an .npz of it.
-`params_to_jax` is the inverse: the port's tensors under their flax names.
+`params_to_jax` is the inverse for 2-D and 4-D kernels: the port's tensors
+under their flax names (an attention projection's heads are not recovered).
 """
 from __future__ import annotations
 
@@ -32,12 +38,19 @@ def _port_name(path: str) -> str:
 
 
 def _port_value(path: str, value: np.ndarray) -> np.ndarray:
-    if path.rsplit("/", 1)[-1] != "kernel":
+    parts = path.split("/")
+    if parts[-1] == "bias" and value.ndim == 2:  # (heads, head_dim)
+        return value.reshape(-1)
+    if parts[-1] != "kernel":
         return value
     if value.ndim == 4:  # HWIO -> OIHW
         return value.transpose(3, 2, 0, 1)
     if value.ndim == 2:  # (in, out) -> (out, in)
         return value.T
+    if value.ndim == 3 and parts[-2] == "out":  # (heads, head_dim, out) -> (out, in)
+        return value.reshape(-1, value.shape[-1]).T
+    if value.ndim == 3:  # (in, heads, head_dim) -> (out, in)
+        return value.reshape(value.shape[0], -1).T
     raise ValueError(f"{path}: kernel of rank {value.ndim}")
 
 

@@ -1,4 +1,5 @@
-"""ctypes bindings for the port's native RLE ops (`rle_ops.cpp`).
+"""ctypes bindings for the port's native RLE ops (`rle_ops.cpp`) and the
+PNG codec's scanline unfilter.
 
 The port builds its own copy of the C++ source, never the JAX package's
 binary: at the first `lib()` call, `g++ -O3 -shared -fPIC` compiles
@@ -6,7 +7,8 @@ binary: at the first `lib()` call, `g++ -O3 -shared -fPIC` compiles
 of the checkout, named by a hash of the source and flags (as `_build.py`
 names the CUDA library). Without g++, or when the build fails, `lib()`
 returns None and every wrapper returns None, so the callers in
-`data/rle.py` and `evaluation/ytvos_eval.py` take their numpy paths.
+`data/rle.py`, `data/png.py` and `evaluation/ytvos_eval.py` take their
+numpy paths.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ SIGNATURES = {
     "rle_encode_window": (_I, [_u8p, _I, _I, _I, _I, _I, _I, _i64p, _I]),
     "rle_counts_to_string": (_I, [_i64p, _I, ctypes.c_char_p, _I]),
     "rle_string_to_counts": (_I, [ctypes.c_char_p, _I, _i64p, _I]),
+    "png_unfilter": (_I, [_u8p, _I, _I, _I, _u8p]),
 }
 
 
@@ -202,3 +205,21 @@ def track_iou_matrix(
             d_counts, d_offsets, g_counts, g_offsets, d_n, g_n, t, out
         )
     return out.reshape(d_n, g_n)
+
+
+def png_unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> Optional[np.ndarray]:
+    """PNG scanlines (h rows of a filter byte + `stride` bytes) -> the (h,
+    stride) reconstructed bytes (None if no lib). Raises ValueError on an
+    unknown filter type."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    data = np.ascontiguousarray(data, np.uint8).reshape(-1)
+    if data.size != h * (stride + 1) or bpp < 1:
+        raise ValueError(f"{data.size} bytes of scanlines for {h} rows of {stride} bytes, "
+                         f"{bpp} a pixel")
+    out = np.empty((h, stride), np.uint8)
+    bad = cdll.png_unfilter(data, h, stride, bpp, out)
+    if bad >= 0:
+        raise ValueError(f"PNG row {bad}: unknown filter type {data[bad * (stride + 1)]}")
+    return out

@@ -6,6 +6,9 @@
 // operate directly on run-length data: intersections are computed by
 // merging run lists without ever materializing bitmaps.
 //
+// Also the PNG codec's scanline unfilter (data/png.py), whose Average and
+// Paeth filters are a sequential walk along each row.
+//
 // Build: g++ -O3 -shared -fPIC at first use, into build/s2d_tpu_torch/
 // (s2d_tpu_torch/native/__init__.py, which also holds the ctypes bindings);
 // without g++ the callers take their numpy paths.
@@ -223,6 +226,43 @@ void track_iou_matrix(
             ious[di * g_n + gi] = uni > 0 ? (double)inter / (double)uni : 0.0;
         }
     }
+}
+
+// Undo PNG scanline filtering: `data` holds h rows of 1 + stride bytes (the
+// filter type, then the filtered bytes), bpp is the bytes of one pixel; the
+// h * stride reconstructed bytes go to `out`. Returns -1 when every row's
+// filter type is known (0-4), else the index of the first row whose is not.
+int64_t png_unfilter(const uint8_t* data, int64_t h, int64_t stride, int64_t bpp, uint8_t* out) {
+    for (int64_t y = 0; y < h; ++y) {
+        const uint8_t* src = data + y * (stride + 1);
+        const uint8_t ftype = src[0];
+        ++src;
+        uint8_t* row = out + y * stride;
+        const uint8_t* prior = y > 0 ? row - stride : nullptr;
+        for (int64_t i = 0; i < stride; ++i) {
+            const int a = i >= bpp ? row[i - bpp] : 0;
+            const int b = prior ? prior[i] : 0;
+            const int c = (prior && i >= bpp) ? prior[i - bpp] : 0;
+            int pred;
+            switch (ftype) {
+                case 0: pred = 0; break;
+                case 1: pred = a; break;
+                case 2: pred = b; break;
+                case 3: pred = (a + b) >> 1; break;
+                case 4: {
+                    const int p = a + b - c;
+                    const int pa = p > a ? p - a : a - p;
+                    const int pb = p > b ? p - b : b - p;
+                    const int pc = p > c ? p - c : c - p;
+                    pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                    break;
+                }
+                default: return y;
+            }
+            row[i] = (uint8_t)(src[i] + pred);
+        }
+    }
+    return -1;
 }
 
 }  // extern "C"
