@@ -87,9 +87,18 @@
    branches scaled so that NMS keeps about 25 tracks a video (see
    `spread_queries`). It checks the survivors, results.json (each entry's T segmentations decode at
    720x1280), the AP keys and 6/9/1 K1/K3/K4 launches per video, prints
-   the frames/s and the stage seconds, then runs the same videos on the
-   plain path and requires identical keep-sets and labels, printing the
-   share of mask pixels that differ;
+   the frames/s, the stage seconds (with rle_encode's share of the wall)
+   and how many survivors came back as bbox crops and how many whole (and
+   the bytes read as a share of the survivors' canvases); runs the same
+   videos again with the whole-mask read forced and requires results.json
+   byte-identical; then runs them on the plain path and requires identical
+   keep-sets and labels, printing the share of mask pixels that differ.
+   The seeded masks may fill the frame and never take the crop path, so
+   `crop_check` also feeds `postprocess_video` a synthetic 720x1280, T = 16
+   video of 50 drifting ellipses of mask logits: the crop path must be
+   taken, each box must equal its track's extent and lie inside its
+   ellipse's, and the entries encoded from the crops must equal those of
+   the whole masks, byte for byte;
 11. writes a full-width reference-layout student/teacher .pth (the torch
    oracle of tests/torch_oracle.py, two seeds) under build/ and loads it
    through `VideoPredictor` on the card with EVAL_STUDENT on and off: each
@@ -126,7 +135,22 @@
    and each tracker's point-frames/s, as the CLI and the tracker count
    them, the peak memory, the NCC match step's device time at the
    visibility stage's points, and the phase's seconds. The set is written
-   under build/ and removed at the end of the phase.
+   under build/ and removed at the end of the phase;
+14. drives the KD step's options through the train CLI (see
+   `train_options_path`): the KD config at full width with
+   MODEL.MASK_FORMER.DISTILLATION_NMS, INPUT.DISENTANGLE_DISTILLATION_LOADER,
+   POINT_SAMPLING lattice and the loader's bit-packed targets, 3 steps of
+   B=4 clips of 3 frames from a synthetic set at 720x1280, from phase 6's
+   seeded state; checks each step's launches (the second student forward
+   doubles the student's K1 and K2, K4 once a clip for the distillation
+   NMS), finite losses, grad_finite 1, packed targets and the distillation
+   view reaching the step, and prints the step time, the data-time share,
+   the peak memory and the distillation targets before and after NMS; then
+   (`compare_options_step`) one step of these options on the plain path
+   from phase 8's seeded state and batch (with a flipped distillation view
+   and packed targets) against the kernel step, the hard decisions
+   replayed, losses at rtol 1e-3 / atol 2e-3 and the distillation NMS's
+   validity identical. The parent side of --compare skips this phase.
 With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
@@ -181,6 +205,13 @@ K2_CALLS = 3  # K2 calls on one input that must agree bit for bit
 # --compare runs the parent's checkout with this variable set: the checks of
 # what the parent does not have yet print their result without failing
 PARENT = os.environ.get("CHIP_SMOKE_SIDE") == "parent"
+# phase 14: the KD step's options (bit-packed targets are the loader's default)
+OPTION_OPTS = ("MODEL.MASK_FORMER.DISTILLATION_NMS", "True",
+               "INPUT.DISENTANGLE_DISTILLATION_LOADER", "True",
+               "MODEL.MASK_FORMER.POINT_SAMPLING", "lattice")
+OPTION_STEPS = 3
+# phase 10's synthetic crop check: tracks, frames, ellipses (stride-4 px)
+CROP_TRACKS, CROP_T = 50, 16
 TRACKS = 25  # NMS survivors `spread_queries` aims the eval weights at
 # phase 12: the train CLI's synthetic train set (videos, frames a video,
 # instances a video), its test set's video lengths, and MAX_ITER of the
@@ -878,13 +909,18 @@ def class_head_scale(cfg, state, images) -> float:
     return float(np.log(t / (1.0 - t)) / margin.quantile(0.4).item())
 
 
-def expected_launches(cfg) -> dict:
+def expected_launches(cfg, clips: int | None = None) -> dict:
     """Kernel launches of one KD step on the card: K1 in the teacher and the
-    student forward, and again when the backward recomputes the encoder
-    layers; K2 in the student's backward; one K5 auction."""
+    student forward (two with the disentangled view), and again when the
+    backward recomputes the encoder layers; K2 in the student's backward;
+    one K5 auction; with DISTILLATION_NMS, K4 once a clip (`clips`)."""
     enc = cfg.model.sem_seg_head.transformer_enc_layers
-    return {"k1_msda": enc * (3 if cfg.solver.grad_checkpoint else 2),
-            "k2_msda_bwd": enc, "k5_auction": 1}
+    student = 2 if cfg.input.disentangle_distillation_loader else 1
+    out = {"k1_msda": enc * (1 + student * (2 if cfg.solver.grad_checkpoint else 1)),
+           "k2_msda_bwd": enc * student, "k5_auction": 1}
+    if cfg.model.mask_former.distillation_nms:
+        out["k4_nms"] = clips
+    return out
 
 
 def train_counters():
@@ -1291,11 +1327,12 @@ def spread_queries(predictor, clip) -> tuple[float, int]:
     return hi, kept(hi)
 
 
-def run_eval(predictor, frames, out_dir: Path, counters=None):
+def run_eval(predictor, frames, out_dir: Path, counters=None, crop=True):
     """evaluate_dataset over EVAL_DATASET with the frames injected; records
     each video's keep-set and labels (device tensors, no sync) and, with
-    `counters`, its kernel launches. Returns (metrics, results, per video
-    [(keep, labels)], per video launches)."""
+    `counters`, its kernel launches; crop=False forces the whole-mask
+    readback. Returns (metrics, results, per video [(keep, labels)], per
+    video launches)."""
     from s2d_tpu_torch.evaluation.evaluator import evaluate_dataset
 
     own = predictor.postprocess
@@ -1315,7 +1352,8 @@ def run_eval(predictor, frames, out_dir: Path, counters=None):
     predictor.postprocess = postprocess
     try:
         metrics = evaluate_dataset(predictor, EVAL_DATASET, output_dir=str(out_dir),
-                                   mapper=lambda record: {"image": frames[record["video_id"]]})
+                                   mapper=lambda record: {"image": frames[record["video_id"]]},
+                                   **({} if crop else {"crop_masks": False}))
     finally:
         del predictor.postprocess
     results = json.loads((out_dir / "results.json").read_text())
@@ -1341,6 +1379,7 @@ def eval_path(dev):
                 "k3_flash": (masked_attention_cuda, "LAUNCHES"), "k4_nms": (nms, "LAUNCHES")}
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
+    transport = None if PARENT else reset_transport()
     metrics, results, taped, per_video = run_eval(predictor, frames, root / "kernel", counters)
     launches = read_counts(counters)
     for i, grew in enumerate(per_video):
@@ -1365,7 +1404,19 @@ def eval_path(dev):
           f"{len(results)} entries")
     print("  " + ", ".join(f"{k} {metrics[k]:.4f}" for k in METRIC_KEYS))
     print("  stage seconds: " + ", ".join(f"{k[len('stage_s/'):]} {v}" for k, v in metrics.items()
-                                          if k.startswith("stage_s/")))
+                                          if k.startswith("stage_s/"))
+          + f"; rle_encode {metrics['stage_s/rle_encode'] / metrics['eval_seconds']:.3f} of the wall")
+    if transport is not None:
+        print(f"  readback: {transport_line(transport)}")
+        rows_metrics, _, _, _ = run_eval(predictor, frames, root / "rows", crop=False)
+        same = (root / "kernel" / "results.json").read_bytes() == (
+            root / "rows" / "results.json").read_bytes()
+        print(f"  whole-mask read forced: {rows_metrics['frames_per_second']:.2f} frames/s, "
+              f"rle_encode {rows_metrics['stage_s/rle_encode']} s, readback_masks "
+              f"{rows_metrics['stage_s/readback_masks']} s; results.json "
+              f"{'byte-identical' if same else 'DIFFERS'} to the crop run's")
+        if not same:
+            raise AssertionError("eval: results.json of the whole-mask read differs")
     counts = [len(seg["counts"]) for r in results for seg in r["segmentations"]]
     print(f"  results.json: {len(counts)} frame masks, RLE string of {np.mean(counts):.0f} "
           f"characters a mask on average ({min(counts)} to {max(counts)})")
@@ -1395,6 +1446,99 @@ def eval_path(dev):
     if failures:
         raise AssertionError("; ".join(failures))
     return launches
+
+
+def reset_transport() -> dict:
+    """Zero the evaluator's readback counts (`inference.TRANSPORT`) and
+    return them."""
+    from s2d_tpu_torch.evaluation import inference
+
+    for k in inference.TRANSPORT:
+        inference.TRANSPORT[k] = 0
+    return inference.TRANSPORT
+
+
+def transport_line(tr: dict) -> str:
+    return (f"{tr['crop_tracks']} survivors as bbox crops, {tr['row_tracks']} whole; "
+            f"{tr['read_bytes']} of {tr['canvas_bytes']} canvas bytes read "
+            f"({tr['read_bytes'] / max(tr['canvas_bytes'], 1):.4f})")
+
+
+def ellipse_video(dev, rng, q=CROP_TRACKS, t=CROP_T, hw=OUT_SIZE):
+    """Mask logits (q, t, h/4, w/4) of q ellipses drifting over t frames,
+    4 (1 - r^2) clipped to [-8, 8], made on `dev`, descending class logits
+    (q, 2), and each ellipse's bounding box over the frames in output
+    pixels (y0, x0, y1, x1). Every fifth ellipse repeats the one before it
+    a pixel off (NMS drops it)."""
+    h4, w4 = hw[0] // 4, hw[1] // 4
+    cy, cx = rng.uniform(0.1, 0.9, q) * h4, rng.uniform(0.1, 0.9, q) * w4
+    ry, rx = rng.uniform(0.02, 0.14, q) * h4, rng.uniform(0.0125, 0.125, q) * w4
+    vy, vx = rng.uniform(-0.008, 0.008, q) * h4, rng.uniform(-0.005, 0.005, q) * w4
+    for i in range(4, q, 5):
+        cy[i], cx[i], ry[i], rx[i], vy[i], vx[i] = cy[i - 1] + 0.25, cx[i - 1], ry[i - 1], \
+            rx[i - 1], vy[i - 1], vx[i - 1]
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)[:, None, None, None]  # noqa: E731
+    ti = torch.arange(t, device=dev, dtype=torch.float32)[None, :, None, None]
+    yy = torch.arange(h4, device=dev, dtype=torch.float32)[None, None, :, None]
+    xx = torch.arange(w4, device=dev, dtype=torch.float32)[None, None, None, :]
+    r2 = ((yy - f(cy) - f(vy) * ti) / f(ry)) ** 2 + ((xx - f(cx) - f(vx) * ti) / f(rx)) ** 2
+    masks = (4 * (1 - r2)).clamp(-8, 8)
+    logits = torch.stack([torch.linspace(4, 0.5, q, device=dev), torch.zeros(q, device=dev)], -1)
+    ends = [cy + vy * (t - 1), cx + vx * (t - 1)]
+    boxes = 4 * np.stack([np.minimum(cy, ends[0]) - ry, np.minimum(cx, ends[1]) - rx,
+                          np.maximum(cy, ends[0]) + ry, np.maximum(cx, ends[1]) + rx], -1)
+    return logits, masks, boxes
+
+
+def crop_check(dev, hw=OUT_SIZE, t=CROP_T) -> None:
+    """Phase 10's synthetic video (`ellipse_video`) through
+    `postprocess_video` (K4) and both readbacks on the card: the crop path
+    taken for every survivor, each box equal to its track's extent in the
+    whole masks and inside its ellipse's bounding box (8 px of resize
+    slack), and results.json entries encoded from the crops equal, byte
+    for byte, to those of the whole masks."""
+    from s2d_tpu_torch.evaluation import evaluator, inference
+
+    logits, masks, ellipse_boxes = ellipse_video(dev, np.random.RandomState(SEED + 6), t=t, hw=hw)
+    post = inference.postprocess_video(logits, masks, num_predictions=CROP_TRACKS, num_classes=1,
+                                       image_size=hw, output_size=hw)
+    scores, labels, keep, boxes = inference.read_small_bundle(post)
+    n = int(keep.sum())
+    tr = reset_transport()
+    entries, ms = {}, {}
+    for crop in (True, False):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        handle = inference.start_kept_masks_read(post, keep, boxes if crop else None)
+        got = inference.finish_kept_masks_read(handle, as_window=True)
+        read = time.perf_counter()
+        entries[crop] = json.dumps(evaluator.predictions_to_results(
+            1, {"scores": scores[keep], "labels": labels[keep], "masks": got}))
+        ms[crop] = ((read - start) * 1e3, (time.perf_counter() - read) * 1e3)
+        if crop:
+            crops = (tr["crop_tracks"], tr["read_bytes"], tr["canvas_bytes"])
+            if not isinstance(got, inference.WindowMasks) or tr["crop_tracks"] != n:
+                raise AssertionError(f"crop check: the crop path was not taken ({transport_line(tr)})")
+            window = got.crops.shape[2:]
+        else:
+            whole = got
+    extent = whole.any(axis=1)
+    for i, k in enumerate(np.flatnonzero(keep)):
+        ys, xs = np.nonzero(extent[i])
+        want = (ys.min(), xs.min(), np.ptp(ys) + 1, np.ptp(xs) + 1) if ys.size else (0, 0, 1, 1)
+        y0, x0, y1, x1 = ellipse_boxes[k]  # prediction k is query k (scores fall with k)
+        if tuple(boxes[i]) != want or not (
+                y0 - 8 <= want[0] and x0 - 8 <= want[1] and want[0] + want[2] <= y1 + 8
+                and want[1] + want[3] <= x1 + 8):
+            raise AssertionError(f"crop check: track {k} box {tuple(boxes[i])}, extent {want}, "
+                                 f"ellipse {(y0, x0, y1, x1)}")
+    if entries[True] != entries[False]:
+        raise AssertionError("crop check: the entries encoded from the crops differ")
+    print(f"crop check: {n} of {CROP_TRACKS} ellipse tracks kept, T = {t} at {hw}; "
+          f"crops {crops[0]} tracks in a {window[0]}x{window[1]} window, {crops[1]} of "
+          f"{crops[2]} canvas bytes ({crops[1] / crops[2]:.4f}); boxes equal the extents; "
+          f"entries identical to the whole masks'; readback + encode ms: crops {ms[True][0]:.1f} "
+          f"+ {ms[True][1]:.1f}, whole {ms[False][0]:.1f} + {ms[False][1]:.1f}")
 
 
 def checkpoint_path(dev):
@@ -1673,6 +1817,180 @@ def train_cli_path(dev, class_scale, opts=(), frame_hw=OUT_SIZE) -> dict:
           f"resumed from (steps 0 and {CLI_ITERS[0]}), bit for bit; metrics.json iterations "
           f"0-{CLI_ITERS[-1] - 1} finite, grad_finite 1")
     return launches
+
+
+def train_options_path(dev, class_scale, opts=(), frame_hw=OUT_SIZE) -> dict:
+    """Phase 14: the train CLI (`train_net_video.main`) with the KD step's
+    options (OPTION_OPTS, and the loader's bit-packed targets) for
+    OPTION_STEPS steps, over a synthetic train set (`write_train_set`), from
+    `new_train_state` saved as step 0 and entered through --resume; no
+    eval (TEST.EVAL_PERIOD 0). Checks each step's launches
+    (`expected_launches`), that the targets arrive packed and the
+    distillation view with them, metrics.json's finite losses and
+    grad_finite; prints the step time and data-time share (metrics.json's,
+    the loop as shipped), the peak memory and the distillation targets
+    before and after NMS. Returns the launches."""
+    from s2d_tpu_torch import train_net_video
+    from s2d_tpu_torch.checkpoint.io import CheckpointWriter
+    from s2d_tpu_torch.config import load_config_tree
+    from s2d_tpu_torch.data.mapper import ClipMapper, MapperConfig
+    from s2d_tpu_torch.ops import nms
+    from s2d_tpu_torch.train import trainer
+
+    started = time.perf_counter()
+    root = Path("build") / "chip_smoke_train_options"
+    shutil.rmtree(root, ignore_errors=True)
+    out = root / "out"
+    cfg = load_config_tree(KD_CONFIG, (*opts, *OPTION_OPTS))
+    frames = write_train_set(root / "train", cfg.datasets.train[0], np.random.RandomState(SEED + 5),
+                             frame_hw)
+    state = new_train_state(cfg, dev, class_scale=class_scale)
+    with CheckpointWriter(str(out / "checkpoints")) as writer:
+        writer.save(0, state)
+    del state
+    torch.cuda.empty_cache()
+    mapper = ClipMapper(MapperConfig.from_config(cfg), seed=max(cfg.seed, 0),
+                        read_frames=lambda record, idx: [frames[record["video_id"]][i] for i in idx])
+    if not mapper.cfg.disentangle:
+        raise AssertionError("options: the mapper does not draw the distillation view")
+    counters = {**train_counters(), "k4_nms": (nms, "LAUNCHES")}
+    steps, validity = [], []
+    own_make, own_nms = trainer.make_train_step, trainer.distillation_nms
+
+    def make_train_step(cfg_, kernels=True):
+        step_fn = own_make(cfg_, kernels)
+
+        def step(state, images, masks, *args, **kwargs):
+            before = read_counts(counters)
+            result = step_fn(state, images, masks, *args, **kwargs)
+            grew = {k: v - before[k] for k, v in read_counts(counters).items()}
+            steps.append((grew, tuple(images.shape), masks.dtype,
+                          sorted(k for k in kwargs if k.startswith("distill"))))
+            return result
+        return step
+
+    def distillation_nms(masks, teacher_out, valid, *args, **kwargs):
+        kept = own_nms(masks, teacher_out, valid, *args, **kwargs)
+        validity.append((valid.sum(1).tolist(), kept.sum(1).tolist()))
+        return kept
+
+    argv = ["--resume", "--device", dev.type, "--config-file", KD_CONFIG, *opts, *OPTION_OPTS,
+            "SOLVER.MAX_ITER", str(OPTION_STEPS), "SOLVER.CHECKPOINT_PERIOD", "1000",
+            "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", str(out)]
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer.make_train_step, trainer.distillation_nms = make_train_step, distillation_nms
+    try:
+        t0 = time.perf_counter()
+        if train_net_video.main(argv, mapper=mapper) != 0:
+            raise AssertionError("options: the train CLI failed")
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.make_train_step, trainer.distillation_nms = own_make, own_nms
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines = [json.loads(line) for line in (out / "metrics.json").read_text().splitlines()]
+    train = [line for line in lines if "total_loss" in line]
+    if [line["iteration"] for line in train] != list(range(OPTION_STEPS)) or len(steps) != OPTION_STEPS:
+        raise AssertionError(f"options: iterations {[x['iteration'] for x in train]}, "
+                             f"{len(steps)} steps")
+    for line in train:
+        bad = [k for k in ("total_loss", "loss_mask", "kd_loss_mask", "kd_loss_dice", "time")
+               if not np.isfinite(line[k])]
+        if bad or line["grad_finite"] != 1.0:
+            raise AssertionError(f"options iteration {line['iteration']}: non-finite {bad}, "
+                                 f"grad_finite {line['grad_finite']}")
+    clips = steps[0][1][0]
+    expected = expected_launches(cfg, clips)
+    for i, (grew, shape, dtype, kwargs) in enumerate(steps):
+        if grew != expected:
+            raise AssertionError(f"options step {i}: launches {grew}, expected {expected}")
+        if dtype != torch.uint8 or kwargs != ["distill_affine", "distill_images"]:
+            raise AssertionError(f"options step {i}: targets {dtype}, view {kwargs}")
+    step_ms = [x["time"] * 1e3 for x in train]
+    later = train[1:]
+    share = sum(x["data_time"] for x in later) / sum(x["time"] for x in later)
+    print(f"options path: {OPTION_STEPS} steps of B={clips} clips of T={steps[0][1][1]} "
+          f"(canvases {sorted({x[1][2:4] for x in steps})}), {np.mean(step_ms[1:]):.1f} ms a step "
+          f"after the first (metrics.json time: {', '.join(f'{ms:.1f}' for ms in step_ms)} ms), "
+          f"data-time share {share:.4f} after the first, peak device memory "
+          f"{peak / 2**30:.2f} GiB; the CLI {wall:.1f} s, the phase so far "
+          f"{time.perf_counter() - started:.1f} s")
+    print(f"  launches per step {steps[0][0]} (expected {expected}); targets packed (uint8), the "
+          f"distillation view in each batch; distillation targets per clip before / after NMS "
+          f"{validity}; kd_loss_mask " + ", ".join(f"{x['kd_loss_mask']:.4f}" for x in train))
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def compare_options_step(dev, class_scale) -> None:
+    """One step with the options from phase 8's seeded state and batch (its
+    distillation view the clips flipped left-right, an exact affine; its
+    targets bit-packed) on the plain path against the kernel path, with
+    the kernel step's hard decisions replayed (both students' attention
+    masks, the distillation targets, their warp, the assignments): losses
+    at rtol 1e-3 / atol 2e-3, the distillation NMS's validity (K4 against
+    the plain loop, not replayed) identical."""
+    from s2d_tpu_torch.config import load_config_tree
+    from s2d_tpu_torch.losses import criterion
+    from s2d_tpu_torch.ops import nms
+    from s2d_tpu_torch.train import trainer
+
+    cfg = load_config_tree(KD_CONFIG, OPTION_OPTS)
+    images, masks, valid = train_batch(cfg, dev)
+    b, t, h, w, _ = images.shape
+    view = {"distill_images": images.flip(3).contiguous(),
+            "distill_affine": torch.tensor([[-1.0, 0, w - 1], [0, 1, 0], [0, 0, 1]],
+                                           device=dev).expand(b, t, 3, 3).contiguous()}
+    packed = torch.from_numpy(np.packbits(masks.cpu().numpy(), axis=-1)).to(dev)
+    counters = {**train_counters(), "k4_nms": (nms, "LAUNCHES")}
+    tapes = [Tape("attention_mask"), Tape("attention_mask"), Tape("prepare_distillation_targets"),
+             Tape("warp_masks_affine"), Tape("hungarian_assign")]
+    what = ["teacher attention-mask", "student attention-mask", "distillation-target", "warp",
+            "assignment"]
+
+    def run(kernels, tape_fn):
+        state = new_train_state(cfg, dev, kernels, class_scale)
+        owners = [state.teacher.predictor, state.student.predictor, trainer, trainer, criterion]
+        for tape, owner in zip(tapes, owners):
+            tape_fn(tape, owner)
+        kept = Tape("distillation_nms").record(trainer)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        try:
+            start = time.perf_counter()
+            _, metrics = trainer.make_train_step(cfg, kernels=kernels)(
+                state, images, packed, valid, generator=gen, **view)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+        finally:
+            for tape in tapes + [kept]:
+                tape.stop()
+        return metrics, kept.values, ms
+
+    before = read_counts(counters)
+    mk, kept_k, ms_k = run(True, lambda tape, owner: tape.record(owner))
+    grew = {k: v - before[k] for k, v in read_counts(counters).items()}
+    if grew != expected_launches(cfg, b):
+        raise AssertionError(f"options compare: kernel step launches {grew}")
+    before = read_counts(counters)
+    mp, kept_p, ms_p = run(False, lambda tape, owner: tape.replay(owner, True))
+    if read_counts(counters) != before:
+        raise AssertionError("options compare: the plain step launched a kernel")
+    failures = []
+    print(f"plain vs kernel options step (B={b}; {ms_k:.0f} / {ms_p:.0f} ms kernel / plain), "
+          "replayed decisions; decisions that differ: "
+          + ", ".join(f"{w_} {tape.differ}" for w_, tape in zip(what, tapes)))
+    for key in mk:
+        if key != "grad_finite" and check_close(key, mp[key], mk[key], 1e-3, 2e-3)[1] > 1.0:
+            failures.append(f"{key} beyond rtol 1e-3 / atol 2e-3")
+    same = len(kept_k) == len(kept_p) == 1 and torch.equal(kept_k[0], kept_p[0])
+    print(f"  distillation NMS validity {'identical' if same else 'DIFFERS'} (K4 against the plain "
+          f"loop): kept {kept_k[0].sum(1).tolist()} of {kept_k[0].shape[1]} queries a clip")
+    if not same:
+        failures.append("the distillation NMS validity differs")
+    if failures:
+        raise AssertionError("options compare: " + "; ".join(failures))
 
 
 def flat_state(sd: dict) -> dict:
@@ -1979,7 +2297,10 @@ COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per sp
                  "  K5 on", "  K5:", "  K6 empty vs", "  ms_deform_attn_bwd:", "  batched_auction:",
                  "  ms_deform_attn_fwd:", "eval path:", "K2 d", "K2 gradient hash", "build:",
                  "  K4 at N=50", "  greedy_nms:", "  K6 ", "checkpoint", "  EVAL_STUDENT",
-                 "train CLI", "keymask", "  correlation tracker", "  cotracker")
+                 "train CLI", "keymask", "  correlation tracker", "  cotracker", "  stage seconds",
+                 "  readback:", "  whole-mask read", "crop check", "options path",
+                 "plain vs kernel options", "  distillation NMS", "options phase",
+                 "chip_smoke:")
 
 
 def compare_checkouts(parent: Path, profile: bool) -> None:
@@ -2134,6 +2455,8 @@ def main(argv=None) -> int:
 
     # 10. the --eval-only path: evaluate_dataset -> results.json -> AP
     eval_launches = eval_path(dev)
+    if not PARENT:
+        crop_check(dev)
 
     # 11. a reference student/teacher checkpoint through the loader
     checkpoint_path(dev)
@@ -2144,16 +2467,26 @@ def main(argv=None) -> int:
     # 13. keymask discovery: the CLI, the trackers, the discovered set
     keymask_path(dev)
 
+    # 14. the KD step's options through the train CLI, then kernel vs plain
+    options = {}
+    if not PARENT:
+        start = time.perf_counter()
+        options = train_options_path(dev, class_scale)
+        compare_options_step(dev, class_scale)
+        print(f"options phase: {time.perf_counter() - start:.1f} s")
+
+    on_options = lambda key: {"kd_options": options[key]} if options else {}  # noqa: E731
     by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
-                           "eval": eval_launches["k1_msda"], "train_cli": cli_launches["k1_msda"]},
+                           "eval": eval_launches["k1_msda"], "train_cli": cli_launches["k1_msda"],
+                           **on_options("k1_msda")},
                "k3_flash": {"inference": launches["k3_flash"], "eval": eval_launches["k3_flash"],
                             "train_cli": cli_launches["k3_flash"]},
                "k4_nms": {"inference": launches["k4_nms"], "eval": eval_launches["k4_nms"],
-                          "train_cli": cli_launches["k4_nms"]},
+                          "train_cli": cli_launches["k4_nms"], **on_options("k4_nms")},
                "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"],
-                               "train_cli": cli_launches["k2_msda_bwd"]},
+                               "train_cli": cli_launches["k2_msda_bwd"], **on_options("k2_msda_bwd")},
                "k5_auction": {"train": train_launches["k5_auction"],
-                              "train_cli": cli_launches["k5_auction"]},
+                              "train_cli": cli_launches["k5_auction"], **on_options("k5_auction")},
                **{f"k6_{v}": {"ablation": n} for v, n in ablate_launches.items()}}
     for key, paths in by_path.items():
         if not all(paths.values()):

@@ -110,7 +110,7 @@ class MaskFormerConfig:
     matcher_num_points: int = 0
     oversample_ratio: float = 3.0
     importance_sample_ratio: float = 0.75
-    point_sampling: str = "iid"  # "lattice" is not ported yet
+    point_sampling: str = "iid"  # "iid" | "lattice"
     loss_strategy: str = "masks-only"
     distillation_loss_strategy: str = "masks-only"
     kd_class_weight: float = 0.0

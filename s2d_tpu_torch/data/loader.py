@@ -6,8 +6,11 @@
     per-batch canvas bucketed to 64 pixels), on a background thread. A
     process takes every num_shards-th record of the seeded permutation
     from shard_index. Batches leave as numpy arrays; the train loop uploads
-    them. Bit-packed targets (`pack_masks`) are not ported: the train step
-    takes bool masks.
+    them. The target masks leave bit-packed along W by default
+    (`pack_masks`, numpy's MSB-first `packbits`): they are the largest
+    array a step uploads, and the step unpacks them on the device. A
+    batch of disentangled samples also carries the distillation view
+    ("distill_images", "distill_affine").
   * `FinalizeThread` and `Prefetcher`, the pipeline threads of both
     loops, with their deadlock-safe error paths.
 """
@@ -34,19 +37,22 @@ def collate_clips(
     pack_masks: bool = False,
 ) -> Dict[str, np.ndarray]:
     """Normalize, pad to the batch's bucketed canvas, stack: {"images"
-    (B, T, H, W, 3) float32, "masks" (B, N, T, H, W) bool, "valid" (B, N)}."""
-    if pack_masks:
-        raise NotImplementedError(
-            "bit-packed targets are not ported yet (ROADMAP queue 1, item 6): the train "
-            "step takes bool masks")
-    if "distill_image" in samples[0]:
-        raise NotImplementedError("the disentangled distillation view is not ported yet "
-                                  "(ROADMAP queue 1, item 6)")
+    (B, T, H, W, 3) float32, "masks" (B, N, T, H, W) bool, or with
+    `pack_masks` (B, N, T, H, W / 8) uint8 (the canvas W is a multiple of
+    8), "valid" (B, N)}; with a distillation view in the samples also
+    "distill_images" (B, T, H, W, 3) and "distill_affine" (B, T, 3, 3) on
+    a canvas that holds both views."""
     t = samples[0]["image"].shape[0]
     max_h = _bucket(_bucket(max(s["image"].shape[1] for s in samples), bucket_multiple),
                     size_divisibility)
     max_w = _bucket(_bucket(max(s["image"].shape[2] for s in samples), bucket_multiple),
                     size_divisibility)
+    has_distill = "distill_image" in samples[0]
+    if has_distill:  # the canvas holds both views, decided before allocating
+        max_h = max(max_h, _bucket(max(s["distill_image"].shape[1] for s in samples),
+                                   bucket_multiple))
+        max_w = max(max_w, _bucket(max(s["distill_image"].shape[2] for s in samples),
+                                   bucket_multiple))
     mean = np.asarray(pixel_mean, np.float32)
     std = np.asarray(pixel_std, np.float32)
     b = len(samples)
@@ -54,12 +60,25 @@ def collate_clips(
     images = np.zeros((b, t, max_h, max_w, 3), np.float32)
     masks = np.zeros((b, n, t, max_h, max_w), bool)
     valid = np.zeros((b, n), bool)
+    if has_distill:
+        distill = np.zeros((b, t, max_h, max_w, 3), np.float32)
+        affine = np.zeros((b, t, 3, 3), np.float32)
     for i, s in enumerate(samples):
         _, h, w, _ = s["image"].shape
         images[i, :, :h, :w] = (s["image"] - mean) / std
         masks[i, :, :, :h, :w] = s["masks"]
         valid[i] = s["valid"]
-    return {"images": images, "masks": masks, "valid": valid}
+        if has_distill:
+            _, dh, dw, _ = s["distill_image"].shape
+            distill[i, :, :dh, :dw] = (s["distill_image"] - mean) / std
+            affine[i] = s["distill_affine"]
+    if pack_masks:
+        masks = np.packbits(masks, axis=-1)
+    batch = {"images": images, "masks": masks, "valid": valid}
+    if has_distill:
+        batch["distill_images"] = distill
+        batch["distill_affine"] = affine
+    return batch
 
 
 def train_loader(
@@ -73,15 +92,13 @@ def train_loader(
     shard_index: int = 0,
     prefetch: int = 2,
     batch_transform: Optional[Callable[[List[dict]], List[dict]]] = None,
-    pack_masks: bool = False,
+    pack_masks: bool = True,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Infinite `Prefetcher` of collated batches of this process's shard,
     mapped `prefetch` batches ahead on a background thread (close it when
     done). `batch_transform` (the copy-paste) runs on the uncollated
-    samples, on that thread."""
-    if pack_masks:
-        raise NotImplementedError(
-            "bit-packed targets are not ported yet (ROADMAP queue 1, item 6)")
+    samples, on that thread. The targets leave bit-packed unless
+    `pack_masks=False`."""
     rng = np.random.RandomState(seed)
 
     def sample_stream():
@@ -98,7 +115,7 @@ def train_loader(
             samples = list(itertools.islice(stream, batch_size))
             if batch_transform is not None:
                 samples = batch_transform(samples)
-            yield collate_clips(samples, pixel_mean, pixel_std)
+            yield collate_clips(samples, pixel_mean, pixel_std, pack_masks=pack_masks)
 
     return Prefetcher(batch_stream(), prefetch)
 

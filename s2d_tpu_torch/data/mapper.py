@@ -6,10 +6,16 @@ consecutive frames in which some instance is annotated throughout), else
 `sparse_frame_selection` around a random reference frame; the clip
 augmentation of `augment.py`; per-frame instance masks with stable
 instance slots (a frame without a mask gives an empty one), padded to
-`max_instances` with a validity mask; the frames as float32. It draws from its `RandomState` in the JAX mapper's order, so one seed
-gives the same clip on both. The frames come from `read_frames(record,
-indices)`, by default the record's image files; a host without an image
-library passes its own (the card's machine has neither cv2 nor PIL).
+`max_instances` with a validity mask; the frames as float32. With
+`disentangle` (INPUT.DISENTANGLE_DISTILLATION_LOADER) a second view of the
+same raw frames is augmented on its own (the distillation view): the
+sample also holds "distill_image" and "distill_affine", the per-frame map
+of primary-view pixels to distill-view pixels (D P^-1), which the train
+step replays on the teacher's targets. It draws from its `RandomState` in
+the JAX mapper's order, so one seed gives the same clip on both. The
+frames come from `read_frames(record, indices)`, by default the record's
+image files; a host without an image library passes its own (the card's
+machine has neither cv2 nor PIL).
 
 `EvalMapper` is the evaluator's mapper (`evaluation/evaluator.py`): every
 frame of the video, read as RGB and resized with cv2 (INTER_LINEAR), as
@@ -115,7 +121,7 @@ class MapperConfig:
     sampling_frame_shuffle: bool = False
     dense_selection: bool = True
     max_instances: int = 40
-    disentangle: bool = False  # a second, differently augmented view (not ported)
+    disentangle: bool = False  # a second, independently augmented view
     aug: ClipAugConfig = dataclasses.field(default_factory=ClipAugConfig)
 
     @classmethod
@@ -191,14 +197,12 @@ def read_record_frames(record: dict, indices: Sequence[int]) -> List[np.ndarray]
 class ClipMapper:
     """Maps a YTVIS record to one fixed-shape train sample: {"video_id",
     "image" (T, H, W, 3) float32, "masks" (max_instances, T, H, W) bool,
-    "valid", "labels", "height", "width", "selected_idx"}."""
+    "valid", "labels", "height", "width", "selected_idx"} and, with
+    `cfg.disentangle`, "distill_image" (T, H', W', 3) float32 and
+    "distill_affine" (T, 3, 3) float32."""
 
     def __init__(self, cfg: MapperConfig, seed: int = 0,
                  read_frames: Optional[Callable[[dict, Sequence[int]], List[np.ndarray]]] = None):
-        if cfg.disentangle:
-            raise NotImplementedError(
-                "the disentangled distillation view (INPUT.DISENTANGLE_DISTILLATION_LOADER) "
-                "is not ported yet (ROADMAP queue 1, item 6)")
         self.cfg = cfg
         self.rng = np.random.RandomState(seed)
         self.read_frames = read_frames or read_record_frames
@@ -235,7 +239,15 @@ class ClipMapper:
                 if seg is not None:
                     masks[n, ti] = _decode_segmentation(seg, h, w)
 
-        frames, masks = augment_clip(self.rng, frames, masks, cfg.aug)
+        if cfg.disentangle:
+            raw = frames
+            frames, masks, affines = augment_clip(self.rng, raw, masks, cfg.aug,
+                                                  return_affines=True)
+            distill, _, distill_affines = augment_clip(self.rng, raw, None, cfg.aug,
+                                                       return_affines=True)
+            rel = np.stack([d @ np.linalg.inv(a) for d, a in zip(distill_affines, affines)])
+        else:
+            frames, masks = augment_clip(self.rng, frames, masks, cfg.aug)
         t = len(frames)
         nh, nw = frames[0].shape[:2]
         masks_padded = np.zeros((cfg.max_instances, t, nh, nw), bool)
@@ -246,7 +258,7 @@ class ClipMapper:
             masks_padded[:k] = masks
             valid[:k] = True
             labels_padded[:k] = labels[:k]
-        return {
+        sample = {
             "video_id": record["video_id"],
             "image": np.stack(frames).astype(np.float32),
             "masks": masks_padded,
@@ -256,3 +268,7 @@ class ClipMapper:
             "width": record["width"],
             "selected_idx": selected,
         }
+        if cfg.disentangle:
+            sample["distill_image"] = np.stack(distill).astype(np.float32)
+            sample["distill_affine"] = rel.astype(np.float32)  # primary px -> distill px
+        return sample

@@ -165,8 +165,15 @@ def to_bbox(rle: RLE) -> List[float]:
 
 
 def polygons_to_mask(polygons: Sequence[Sequence[float]], h: int, w: int) -> np.ndarray:
-    """COCO polygon segmentation -> binary mask (cv2 fill, frPyObjects-like)."""
-    import cv2
+    """COCO polygon segmentation -> binary mask (cv2 fill, frPyObjects-like).
+    Needs cv2: a host without it (the card's machine) raises ImportError;
+    YTVIS pseudo-annotations are RLE and never come here."""
+    try:
+        import cv2
+    except ImportError:
+        raise ImportError(
+            "a polygon segmentation needs cv2 (cv2.fillPoly) to become a mask, and cv2 is not "
+            "installed; convert the annotations' polygons to RLE on a host that has it") from None
 
     mask = np.zeros((h, w), dtype=np.uint8)
     pts = [

@@ -6,13 +6,20 @@ tracks become per-frame COCO RLEs (`predictions_to_results`), the list is
 dumped to `results.json` and scored with the spatio-temporal AP of
 `ytvos_eval.py` (class-agnostic, as S2D evaluates).
 
-The pipeline is JAX's, in three threads:
+The pipeline is JAX's, in four threads:
   * a prefetch thread maps video i+1 (frame read + resize), pads it to a
     T-bucket and starts its host->device upload on a side stream;
   * the main thread runs the forward and `postprocess_video` (on a CUDA
-    device both are queued asynchronously);
-  * a finalize thread reads the survivors back (`masks[keep]`, as
-    `finalize_predictions`) and RLE-encodes them.
+    device both are queued asynchronously) and starts the copy of the
+    small bundle of scores, labels, keep and boxes;
+  * finalize thread A reads the small bundle (the first host read, so the
+    wait for the device rides there) and starts the survivors' readback:
+    each track as a bbox window gathered on the device (a stream of its
+    own), or whole where a window would not cut 30% of the canvas
+    (`inference.start_kept_masks_read`);
+  * finalize thread B waits for that readback and RLE-encodes each track
+    straight from its window (`rle.encode_window`: O(crop), not O(canvas),
+    and the same RLE as pasting and encoding the whole mask).
 The queues have depth 2. `stage_s/*` holds each stage's wall seconds,
 keyed by the thread that pays them (the stages overlap, so their sum
 exceeds the wall).
@@ -21,9 +28,9 @@ T-bucket padding as JAX: a clip is zero-padded to a multiple of 8 frames,
 the decoder blocks the pad frames' keys (`frame_valid`) and postprocess
 cuts them off (`num_frames`). One model with the K3 flash cross-attention
 serves every bucket (JAX's short-bucket model was a TPU timing choice).
-Left out: the JAX package's `time_mesh` (frame-parallel eval over a mesh)
-and its bit-packed crop transport of the masks (a TPU transport
-workaround): the survivors' masks come back whole.
+Left out: the JAX package's `time_mesh` (frame-parallel eval over a mesh,
+with DDP) and the bit-pack of the masks along H before their readback
+(TPU-only: it packs bits where the TPU's lanes are cheap).
 
 Multi-host: each process evaluates its shard of videos into
 `results_shard{i}.json`; `merge_shard_results` + `score_results` score the
@@ -43,6 +50,8 @@ from ..data import rle as rle_codec
 from ..data.loader import FinalizeThread, Prefetcher
 from ..data.mapper import EvalMapper
 from ..data.ytvis import get_dataset
+from .inference import (WindowMasks, finish_kept_masks_read, read_small_bundle,
+                        start_kept_masks_read, start_small_read)
 from .ytvos_eval import evaluate_vis
 
 T_BUCKET = 8  # clips are zero-padded to a multiple of this many frames
@@ -52,15 +61,26 @@ QUEUE_DEPTH = 2
 def predictions_to_results(
     video_id: int, preds: Dict[str, np.ndarray], category_offset: int = 1
 ) -> List[dict]:
-    """Binarized track masks (n, T, H, W) -> results.json entries (per-frame
-    RLE)."""
+    """Binarized track masks -> results.json entries (per-frame RLE).
+
+    `preds["masks"]` is the (n, T, H, W) bool masks or the `WindowMasks`
+    of a crop read, which is encoded straight from each window: the same
+    RLEs, at O(crop) instead of O(canvas) a frame."""
+    masks = preds["masks"]
     results = []
-    for score, label, track in zip(preds["scores"], preds["labels"], preds["masks"]):
+    for i, (score, label) in enumerate(zip(preds["scores"], preds["labels"])):
+        if isinstance(masks, WindowMasks):
+            y0, x0 = int(masks.y0[i]), int(masks.x0[i])
+            h_i = min(masks.crops.shape[2], masks.height - y0)
+            segs = [rle_codec.encode_window(frame[:h_i], y0, x0, masks.height, masks.width)
+                    for frame in masks.crops[i]]
+        else:
+            segs = [rle_codec.encode(frame) for frame in masks[i]]
         results.append({
             "video_id": int(video_id),
             "score": float(score),
             "category_id": int(label) + category_offset,
-            "segmentations": [rle_codec.encode(frame) for frame in track],
+            "segmentations": segs,
         })
     return results
 
@@ -120,13 +140,15 @@ def evaluate_dataset(
     num_shards: int = 1,
     shard_index: int = 0,
     mapper: Optional[Callable[[dict], dict]] = None,
+    crop_masks: bool = True,
 ) -> Dict[str, float]:
     """--eval-only path: run `predictor` (a `demo_video.VideoPredictor`)
     over a registered dataset, write results.json and score it.
 
     mapper: record -> a dict with "image", the (T, H, W, 3) uint8 frames at
     the test size; by default `EvalMapper` reads and resizes the record's
-    frame files. Returns the AP metrics, `eval_seconds`,
+    frame files. crop_masks=False reads every survivor's whole masks back
+    (the results are the same). Returns the AP metrics, `eval_seconds`,
     `frames_per_second` and `stage_s/*`. With num_shards > 1 the metrics
     cover this shard only (merge with `merge_shard_results`)."""
     dicts, _ = get_dataset(dataset_name)
@@ -138,6 +160,7 @@ def evaluate_dataset(
     mapper = mapper or EvalMapper(cfg.min_size_test, cfg.max_size_test)
     device = predictor.device
     upload_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    readback_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     results: List[dict] = []
     gt_annotations: List[dict] = []
@@ -147,11 +170,11 @@ def evaluate_dataset(
         "dispatch_fwd": 0.0,         # main: the forward call (within the above)
         "dispatch_post": 0.0,        # main: the postprocess call (within the above)
         "put_wait": 0.0,             # main: backpressure from the finalize thread
-        "readback_small": 0.0,       # finalize: keep/scores/labels, the first host
+        "readback_small": 0.0,       # finalize A: the small bundle, the first host
         #                              read, so the wait for the device rides here
-        "readback_masks": 0.0,       # finalize: the survivors' masks
-        "unpack": 0.0,               # finalize: none here (no bit-pack transport)
-        "rle_encode": 0.0,           # finalize: counts + COCO string encode
+        "readback_masks": 0.0,       # finalize B: the survivors' crops or masks
+        "unpack": 0.0,               # finalize B: none here (no bit-pack transport)
+        "rle_encode": 0.0,           # finalize B: counts + COCO string encode
         "score": 0.0,                # main, after the loop: evaluate_vis
     }
 
@@ -168,20 +191,22 @@ def evaluate_dataset(
             stage["decode_map"] += time.perf_counter() - t0
             yield record, uploaded, t, (h, w)
 
+    def finalize_masks(video_id, scores, labels, keep, handle):
+        masks = finish_kept_masks_read(handle, timers=stage, as_window=True)
+        t0 = time.perf_counter()
+        results.extend(predictions_to_results(
+            video_id, {"scores": scores[keep], "labels": labels[keep], "masks": masks}))
+        stage["rle_encode"] += time.perf_counter() - t0
+
+    fin_masks = FinalizeThread(finalize_masks, depth=QUEUE_DEPTH)
+
     def finalize(video_id, post):
         t0 = time.perf_counter()
-        keep = post["keep"].cpu().numpy()
-        scores = post["scores"].cpu().numpy()[keep]
-        labels = post["labels"].cpu().numpy()[keep]
-        t1 = time.perf_counter()
-        kept = torch.from_numpy(np.flatnonzero(keep)).to(post["masks"].device)
-        masks = post["masks"].index_select(0, kept).cpu().numpy()
-        t2 = time.perf_counter()
-        results.extend(predictions_to_results(
-            video_id, {"scores": scores, "labels": labels, "masks": masks}))
-        stage["readback_small"] += t1 - t0
-        stage["readback_masks"] += t2 - t1
-        stage["rle_encode"] += time.perf_counter() - t2
+        scores, labels, keep, boxes = read_small_bundle(post)
+        stage["readback_small"] += time.perf_counter() - t0
+        handle = start_kept_masks_read(post, keep, boxes if crop_masks else None,
+                                       stream=readback_stream)
+        fin_masks.put(video_id, scores, labels, keep, handle)
 
     fin = FinalizeThread(finalize, depth=QUEUE_DEPTH)
     mapped = Prefetcher(timed_map(), QUEUE_DEPTH)
@@ -198,6 +223,7 @@ def evaluate_dataset(
             t_fwd = time.perf_counter()
             post = predictor.postprocess(
                 out, image_size, (record["height"], record["width"]), num_frames=t)
+            start_small_read(post)
             t_put = time.perf_counter()
             stage["dispatch_fwd"] += t_fwd - t_disp
             stage["dispatch_post"] += t_put - t_fwd
@@ -208,7 +234,11 @@ def evaluate_dataset(
     finally:
         mapped.close()
         t_close = time.perf_counter()
-        fin.close()
+        try:
+            fin.close()
+        finally:
+            # flush thread B even when A's flush raises
+            fin_masks.close()
         stage["put_wait"] += time.perf_counter() - t_close
     elapsed = time.perf_counter() - start
 

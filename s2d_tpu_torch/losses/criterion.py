@@ -15,9 +15,16 @@ and, in `set_criterion_pair`, both criteria), then scored:
   * temporal DropLoss ("masks-only"): rows whose target is empty in a frame
     contribute nothing; num_masks = max(valid targets / world size, 1).
 
-The random draws (the pool, the Bernoulli weights) come from an explicit
-`torch.Generator`, or are given (`draws`), which the parity tests use to
-feed JAX's own draws. Each layer's point loss runs under
+With `point_sampling="lattice"` (MODEL.MASK_FORMER.POINT_SAMPLING) the
+pools are random-phase lattices instead (`ops/lattice.py`): the loss pool
+and the matcher's pool each an (Ly, Lx) lattice of about their nominal
+counts, valid for the prediction and target resolutions, at one phase
+pair per step; the uncertainty threshold of a pool of 8192 points or more
+counts on a strided subsample (a lattice's prefix is a spatial band).
+
+The random draws (the pool or the lattice phases, the Bernoulli weights)
+come from an explicit `torch.Generator`, or are given (`draws`), which the
+parity tests use to feed JAX's own draws. Each layer's point loss runs under
 `torch.utils.checkpoint`, so that one layer's (R, S) pool is alive at a time.
 
 The TPU structure is not ported: the one-hot form of the pool gather's
@@ -29,12 +36,14 @@ bilinear term rounded, and the target values at the pool are held in bf16.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.lattice import choose_lattice, lattice_sample
 from ..ops.sampling import corner_terms, grid_sample_rows
 from .matcher import hungarian_assign
 
@@ -53,7 +62,7 @@ class CriterionConfig:
     masks_only: bool = True  # temporal DropLoss
     world_size: int = 1
     gather_dtype: torch.dtype = torch.float32  # the loss chain's dtype (bf16 under AMP)
-    point_sampling: str = "iid"
+    point_sampling: str = "iid"  # "iid" | "lattice"
     assign_impl: str = "cuda"  # auction: "cuda" (K5 on a CUDA tensor) | "plain"
 
 
@@ -71,9 +80,10 @@ def draw_pool(cfg: CriterionConfig, generator: torch.Generator, device) -> torch
 
 
 def draw_bernoulli(cfg: CriterionConfig, rows: int, generator: torch.Generator,
-                   device) -> torch.Tensor:
-    """(rows, S) bool: the shared random-point thinning of the pool."""
-    s = pool_size(cfg)
+                   device, s: int | None = None) -> torch.Tensor:
+    """(rows, S) bool: the shared random-point thinning of the pool of S
+    points (default: the iid pool's size)."""
+    s = s or pool_size(cfg)
     return torch.rand((rows, s), generator=generator, device=device) < (num_random_points(cfg) / s)
 
 
@@ -111,14 +121,16 @@ def _lane_packed_sample(maps: torch.Tensor, pool: torch.Tensor,
 
 
 def _uncertainty_threshold(values: torch.Tensor, k: int, subsample: int = 32768,
-                           iters: int = 20) -> torch.Tensor:
+                           iters: int = 20, sub: torch.Tensor | None = None) -> torch.Tensor:
     """(R, S) -> (R, 1) estimate of each row's k-th largest value: exact by
-    top-k below 8192 columns, else bisected on the pool prefix (an iid
-    subsample of the pool) for the threshold whose exceedance count is k."""
+    top-k below 8192 columns, else bisected on `sub` (default: the pool
+    prefix, an iid subsample of an iid pool) for the threshold whose
+    exceedance count is k."""
     s = values.shape[-1]
     if s < 8192:
         return torch.topk(values, min(k, s), dim=-1).values[..., -1:]
-    sub = values[..., : min(subsample, s)]
+    if sub is None:
+        sub = values[..., : min(subsample, s)]
     k_sub = torch.tensor(k * (sub.shape[-1] / s), dtype=torch.float32, device=values.device)
     lo = sub.amin(dim=-1, keepdim=True).float()
     hi = sub.amax(dim=-1, keepdim=True).float()
@@ -131,24 +143,37 @@ def _uncertainty_threshold(values: torch.Tensor, k: int, subsample: int = 32768,
 
 def _loss_masks(
     src_masks: torch.Tensor,  # (B, N, T, H', W') matched prediction logits
-    pool: torch.Tensor,  # (S, 2)
+    pool: torch.Tensor,  # (S, 2), or the (2,) lattice phase
     pool_tgt: torch.Tensor,  # (R, S) target values at the pool
     bern_wts: torch.Tensor,  # (R, S) bool
     row_keep: torch.Tensor,  # (B, N, T) bool
     num_masks: torch.Tensor,  # scalar
     cfg: CriterionConfig,
+    lattice: Tuple[int, int] | None = None,  # (Ly, Lx) when `pool` is a phase
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Point-sampled sigmoid BCE and dice over the shared pool."""
     b, n, t = src_masks.shape[:3]
     rows_src = src_masks.reshape(b * n * t, *src_masks.shape[3:])
     keep = row_keep.reshape(b * n * t).float()
     wd = cfg.gather_dtype
-    pool_src = _lane_packed_sample(rows_src, pool, wd)  # (R, S), grads flow
+    if lattice is not None:
+        pool_src = lattice_sample(rows_src.float().to(wd), *lattice, pool).reshape(b * n * t, -1)
+    else:
+        pool_src = _lane_packed_sample(rows_src, pool, wd)  # (R, S), grads flow
     num_uncertain = int(cfg.importance_sample_ratio * cfg.num_points)
     uncertainty = -pool_src.detach().abs()
     wts = bern_wts.to(wd)
     if num_uncertain > 0:
-        thr = _uncertainty_threshold(uncertainty, num_uncertain)
+        sub = None
+        s = uncertainty.shape[-1]
+        if lattice is not None and s >= 8192:
+            # a lattice's prefix is a spatial band: take a strided subsample,
+            # its stride coprime with Lx (else it walks a periodic column set)
+            stride = max(1, s // 32768)
+            while stride > 1 and math.gcd(stride, lattice[1]) != 1:
+                stride += 1
+            sub = uncertainty[..., ::stride]
+        thr = _uncertainty_threshold(uncertainty, num_uncertain, sub=sub)
         wts = wts + (uncertainty >= thr).to(wd)
     count = torch.clamp(wts.sum(dim=1, dtype=torch.float32), min=1.0)
 
@@ -198,14 +223,16 @@ def _criterion_costs_multi(
     scored against one or more target sets: the shared pool and Bernoulli
     draws, the per-set target values at the pool, the per-layer cost
     matrices (one prediction sampling per layer, shared by the sets) and
-    the loss-side context. `draws` = {"pool": (S, 2), "bern": {rows: (rows,
-    S) bool}} replaces the generator's draws."""
+    the loss-side context. `draws` = {"pool": (S, 2) or, in lattice mode,
+    "phases": (2, 2) (the loss pool's phase, then the matcher's), "bern":
+    {rows: (rows, S) bool}} replaces the generator's draws."""
     cfg0 = target_sets[0][2]
     for _, _, c in target_sets:
-        if c.point_sampling != "iid":
-            raise NotImplementedError(f"point_sampling={c.point_sampling!r} is not ported")
-        if (c.num_points, c.oversample_ratio, c.matcher_num_points) != (
-                cfg0.num_points, cfg0.oversample_ratio, cfg0.matcher_num_points):
+        if c.point_sampling not in ("iid", "lattice"):
+            raise ValueError(f"unknown point_sampling {c.point_sampling!r}")
+        if (c.num_points, c.oversample_ratio, c.matcher_num_points, c.point_sampling) != (
+                cfg0.num_points, cfg0.oversample_ratio, cfg0.matcher_num_points,
+                cfg0.point_sampling):
             raise ValueError("target sets sharing one pool must agree on its size")
     layers = _layer_outputs(outputs)
     device = outputs["pred_masks"].device
@@ -214,14 +241,40 @@ def _criterion_costs_multi(
     if p > num_sampled:
         raise ValueError("matcher_num_points must fit inside the shared oversample pool")
     draws = draws or {}
-    pool = draws["pool"] if "pool" in draws else draw_pool(cfg0, generator, device)
-    pool_p = pool[:p]
+    lat_loss = lat_match = None
+    if cfg0.point_sampling == "lattice":
+        tgt_hw = {tuple(tm.shape[-2:]) for tm, _, _ in target_sets}
+        if len(tgt_hw) != 1:
+            raise ValueError("lattice point sampling needs all target sets at one resolution")
+        (h_t, w_t), (h_p, w_p) = next(iter(tgt_hw)), tuple(outputs["pred_masks"].shape[-2:])
+        lat_loss = choose_lattice(num_sampled, (h_p, h_t), (w_p, w_t))
+        lat_match = choose_lattice(p, (h_p, h_t), (w_p, w_t))
+        num_sampled, p = lat_loss[0] * lat_loss[1], lat_match[0] * lat_match[1]
+        phases = (draws["phases"] if "phases" in draws
+                  else torch.rand((2, 2), generator=generator, device=device))
+        pool, phase_match = phases[0], phases[1]  # the loss pool's handle is its phase
+
+        def sample_match(rows):
+            return lattice_sample(rows, *lat_match, phase_match)
+    else:
+        pool = draws["pool"] if "pool" in draws else draw_pool(cfg0, generator, device)
+        pool_p = pool[:p]
+
+        def sample_match(rows):
+            return _lane_packed_sample(rows, pool_p)
 
     per_set = []
     with torch.no_grad():
         for tgt_masks, _, cfg in target_sets:
             bsz, nsl, t = tgt_masks.shape[:3]
             rows_tgt = tgt_masks.reshape(bsz * nsl * t, *tgt_masks.shape[3:])
+            if lat_loss is not None:
+                # the loss pool in gather_dtype, the matcher's values in f32
+                pool_tgt = lattice_sample(rows_tgt.to(cfg.gather_dtype), *lat_loss, pool)
+                pool_tgt = pool_tgt.reshape(bsz * nsl * t, num_sampled)
+                tgt_pts = sample_match(rows_tgt.float()).reshape(bsz, nsl, t * p)
+                per_set.append((pool_tgt, tgt_pts))
+                continue
             pool_tgt = _lane_packed_sample(rows_tgt, pool)  # (R, S) f32
             tgt_pts = pool_tgt.reshape(bsz, nsl, t, num_sampled)[..., :p].reshape(bsz, nsl, t * p)
             # the matcher reads the f32 values, the losses their gather_dtype
@@ -237,7 +290,7 @@ def _criterion_costs_multi(
         for _, logits, masks in layers:
             q, tm = masks.shape[1], masks.shape[2]
             rows = masks.float().reshape(bsz * q * tm, *masks.shape[3:])
-            pmp = _lane_packed_sample(rows, pool_p).reshape(bsz, q, tm * p)
+            pmp = sample_match(rows).reshape(bsz, q, tm * p)
             # pos @ tgt + neg @ (1 - tgt) = (-x) @ tgt + rowsum(softplus(x))
             neg_rowsum = F.softplus(pmp).sum(-1)
             probs = torch.sigmoid(pmp)
@@ -272,7 +325,7 @@ def _criterion_costs_multi(
         rows = bsz * nsl * t
         if num_random_points(cfg) > 0:
             if rows not in bern_cache:
-                bern_cache[rows] = draw_bernoulli(cfg, rows, generator, device)
+                bern_cache[rows] = draw_bernoulli(cfg, rows, generator, device, num_sampled)
             bern_wts = bern_cache[rows]
         else:
             bern_wts = torch.zeros((rows, num_sampled), dtype=torch.bool, device=device)
@@ -284,6 +337,7 @@ def _criterion_costs_multi(
             "layers": layers,
             "tgt_valid": tgt_valid,
             "pool": pool,
+            "lattice": lat_loss,
             "pool_tgt": pool_tgt,
             "bern_wts": bern_wts,
             "row_keep": row_keep,
@@ -302,7 +356,7 @@ def _criterion_losses(state: Dict, assigns: torch.Tensor, cfg: CriterionConfig,
         batch = torch.arange(assign.shape[0], device=assign.device)[:, None]
         src = masks[batch, assign]  # (B, N, T, H', W')
         args = (src, state["pool"], state["pool_tgt"], state["bern_wts"],
-                state["row_keep"], state["num_masks"], cfg)
+                state["row_keep"], state["num_masks"], cfg, state["lattice"])
         if torch.is_grad_enabled():
             loss_mask, loss_dice = checkpoint(_loss_masks, *args, use_reentrant=False,
                                               preserve_rng_state=False)
@@ -344,14 +398,24 @@ def set_criterion_pair(
     compute_labels_loss: bool = True,
     generator: torch.Generator | None = None,
     draws: Dict | None = None,
+    outputs_b: Dict[str, torch.Tensor] | None = None,
+    draws_b: Dict | None = None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Two criteria (supervised + distillation) on the same outputs: one
-    shared pool, one prediction sampling per layer, and ONE batched auction
+    """Two criteria (supervised + distillation) with ONE batched auction
     for all 2 x layers x batch problems (costs padded with invalid columns
-    to a common target count)."""
-    st_a, st_b = _criterion_costs_multi(
-        outputs, [(tgt_masks_a, tgt_valid_a, cfg_a), (tgt_masks_b, tgt_valid_b, cfg_b)],
-        generator, draws)
+    to a common target count). On the same outputs they share one pool and
+    one prediction sampling per layer; with `outputs_b` (the student on the
+    disentangled distillation view) the second criterion scores those with
+    its own draws (`draws_b`, else the generator's next)."""
+    if outputs_b is None or outputs_b is outputs:
+        st_a, st_b = _criterion_costs_multi(
+            outputs, [(tgt_masks_a, tgt_valid_a, cfg_a), (tgt_masks_b, tgt_valid_b, cfg_b)],
+            generator, draws)
+    else:
+        (st_a,) = _criterion_costs_multi(outputs, [(tgt_masks_a, tgt_valid_a, cfg_a)],
+                                         generator, draws)
+        (st_b,) = _criterion_costs_multi(outputs_b, [(tgt_masks_b, tgt_valid_b, cfg_b)],
+                                         generator, draws_b)
     n_a = st_a["stacked_cost"].shape[-1]
     n_b = st_b["stacked_cost"].shape[-1]
     n = max(n_a, n_b)

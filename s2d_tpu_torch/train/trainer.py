@@ -4,12 +4,19 @@
 One step:
   1. teacher forward without gradients (eval mode);
   2. distillation targets from the teacher's own predictions: score >=
-     SCORE_THRESHOLD_DISTILLATION, masks upsampled x4 and binarized;
+     SCORE_THRESHOLD_DISTILLATION, masks upsampled x4 and binarized; with
+     the disentangled view (INPUT.DISENTANGLE_DISTILLATION_LOADER) warped
+     into the distillation view (`ops/warp.py`); with DISTILLATION_NMS,
+     greedy mask-IoU NMS over them at TEST.NMS_THRESH (`distillation_nms`,
+     K4 on the card, one launch a clip);
   3. student forward in train mode (encoder dropout from the step's
      generator; with SOLVER.GRAD_CHECKPOINT each encoder layer is recomputed
-     in the backward pass);
-  4. the supervised and distillation criteria on the student's outputs,
-     with one batched auction for both (`set_criterion_pair`);
+     in the backward pass); with the disentangled view a second forward on
+     the distillation images, with the same dropout draw;
+  4. the supervised and distillation criteria on the student's outputs
+     (the distillation one on the second forward's, with its own draws),
+     with one batched auction for both (`set_criterion_pair`); the point
+     pools iid or random-phase lattices (MODEL.MASK_FORMER.POINT_SAMPLING);
   5. the weighted total, its gradients, and the optimizer (`optim.py`);
   6. the EMA teacher update, on accumulation boundaries only;
   7. the NaN skip: on a non-finite total the parameters, Adam's moments and
@@ -18,10 +25,11 @@ One step:
 With `kernels=True` the MSDA core runs the K1 forward and K2 backward CUDA
 kernels and the auction the K5 kernel on a CUDA device; `kernels=False`
 runs their plain PyTorch versions. Random draws come from the generator
-given to the step, or are given (`draws`: "pool", "bern", as
-`losses/criterion.py`), which the parity tests use to feed JAX's draws.
-Not ported yet: DISTILLATION_NMS, the disentangled distillation view
-(`ops/warp.py`), bit-packed targets; they raise NotImplementedError.
+given to the step, or are given (`draws`: "pool" or "phases", "bern", as
+`losses/criterion.py`, and under "kd" the distillation criterion's own
+with the disentangled view), which the parity tests use to feed JAX's
+draws. Targets come as bool masks or bit-packed along W (uint8, numpy's
+`packbits`, as the loader ships them), unpacked on the device.
 """
 from __future__ import annotations
 
@@ -38,7 +46,9 @@ from ..config import Config, from_s2d_config
 from ..demo_video import set_full_f32
 from ..losses.criterion import CriterionConfig, set_criterion, set_criterion_pair
 from ..models.meta_arch import VideoMaskFormer, build_model
+from ..ops.nms import greedy_mask_nms, greedy_mask_nms_plain, mask_iou_matrix
 from ..ops.resize import interpolate_bilinear
+from ..ops.warp import warp_masks_affine
 from .optim import KDOptimizer
 from .schedules import ema_momentum_schedule, loss_weight_factors
 
@@ -94,6 +104,40 @@ def prepare_distillation_targets(
     valid = scores >= score_threshold
     up = interpolate_bilinear(teacher_out["pred_masks"].float(), tuple(pad_hw))
     return up > 0.0, valid
+
+
+def distillation_nms(masks: torch.Tensor, teacher_out: Dict[str, torch.Tensor],
+                     valid: torch.Tensor, nms_thresh: float, impl: str = "kernel") -> torch.Tensor:
+    """Greedy same-class mask-IoU NMS over the (possibly warped) distillation
+    targets, the reference's `nms=True`: per clip, the candidates in
+    descending score order (stable: ties keep query order), invalid ones
+    neither suppressing nor surviving. masks (B, Q, T, H, W) bool, valid
+    (B, Q). Returns the new (B, Q) validity. impl "kernel": K4 (on a CUDA
+    tensor, one launch a clip), "plain": the torch loop."""
+    nms = greedy_mask_nms if impl == "kernel" else greedy_mask_nms_plain
+    probs = torch.softmax(teacher_out["pred_logits"].float(), dim=-1)[..., :-1]
+    scores, labels = probs.amax(-1), probs.argmax(-1)
+    out = torch.zeros_like(valid)
+    for b in range(masks.shape[0]):
+        order = torch.argsort(-scores[b], stable=True)
+        v_sorted = valid[b][order]
+        iou = mask_iou_matrix(masks[b])[order][:, order]
+        iou = (iou * (v_sorted[:, None] & v_sorted[None, :])).contiguous()
+        out[b, order] = nms(iou, labels[b][order], nms_thresh) & v_sorted
+    return out
+
+
+def unpack_targets(tgt_masks: torch.Tensor, width: int) -> torch.Tensor:
+    """Bit-packed targets (..., W / 8) uint8 (MSB first) -> (..., W) bool on
+    their device. A uint8 array whose last axis is not W / 8 raises: 0/1
+    masks go in as bool."""
+    if tgt_masks.shape[-1] * 8 != width:
+        raise ValueError(
+            f"uint8 tgt_masks are interpreted as bit-packed along W but last dim "
+            f"{tgt_masks.shape[-1]} * 8 != padded W {width}; pass bool masks for an unpacked feed")
+    shifts = torch.arange(7, -1, -1, device=tgt_masks.device, dtype=torch.uint8)
+    bits = (tgt_masks[..., None] >> shifts) & 1
+    return bits.reshape(*tgt_masks.shape[:-1], width).bool()
 
 
 def weighted_total(losses: Dict[str, torch.Tensor], weights: LossWeights, kd: bool,
@@ -157,12 +201,8 @@ class KDTrainStep:
             raise NotImplementedError(
                 "NUM_PREDICTIONS_DISTILLATION < NUM_OBJECT_QUERIES: the k >= Q identity "
                 "prepare_distillation_targets relies on does not hold")
-        if mf.distillation_nms:
-            raise NotImplementedError("DISTILLATION_NMS is not ported yet")
-        if cfg.input.disentangle_distillation_loader:
-            raise NotImplementedError("the disentangled distillation view is not ported yet")
-        if mf.point_sampling != "iid":
-            raise NotImplementedError(f"point_sampling={mf.point_sampling!r} is not ported yet")
+        self.nms_impl = "kernel" if kernels else "plain"
+        self.nms_thresh = mf.test.nms_thresh
         amp = cfg.solver.amp.enabled
         self.crit_cfg = CriterionConfig(
             num_classes=cfg.model.sem_seg_head.num_classes, eos_coef=mf.no_object_weight,
@@ -184,24 +224,44 @@ class KDTrainStep:
 
     def loss_and_grads(self, state: TrainState, images: torch.Tensor, tgt_masks: torch.Tensor,
                        tgt_valid: torch.Tensor, generator: torch.Generator | None = None,
-                       draws: Dict | None = None):
-        """(total loss, metrics, one gradient per optimizer parameter)."""
-        if tgt_masks.dtype != torch.bool:
-            raise NotImplementedError("targets are bool masks (bit-packed ones are not ported)")
+                       draws: Dict | None = None, distill_images: torch.Tensor | None = None,
+                       distill_affine: torch.Tensor | None = None):
+        """(total loss, metrics, one gradient per optimizer parameter).
+        distill_images (B, T, H, W, 3) and distill_affine (B, T, 3, 3): the
+        disentangled distillation view of the batch, on the same canvas."""
         pad_hw = tuple(images.shape[2:4])
+        if tgt_masks.dtype == torch.uint8:
+            tgt_masks = unpack_targets(tgt_masks, pad_hw[1])
+        disentangled = self.kd_enabled and distill_images is not None
+        if disentangled and generator is None:  # the two forwards replay one draw
+            generator = torch.Generator(device=images.device)
+            generator.manual_seed(int(torch.randint(0, 2**62, (1,))))
         sup_factor, kd_factor = self.factors_fn(state.step)
         if self.kd_enabled:
             with record_function("teacher"), torch.no_grad():
                 teacher_out = state.teacher(images)
                 kd_masks, kd_valid = prepare_distillation_targets(
                     teacher_out, self.mf.score_threshold_distillation, pad_hw)
+                if disentangled:
+                    kd_masks = warp_masks_affine(kd_masks, distill_affine)
+                if self.mf.distillation_nms:
+                    kd_valid = distillation_nms(kd_masks, teacher_out, kd_valid,
+                                                self.nms_thresh, self.nms_impl)
         with record_function("student"):
+            drop_state = generator.get_state() if disentangled else None
             out = state.student(images, generator=generator)
+            kd_out = None
+            if disentangled:
+                after = generator.get_state()
+                generator.set_state(drop_state)  # JAX reuses the dropout key
+                kd_out = state.student(distill_images, generator=generator)
+                generator.set_state(after)
         with record_function("criterion"):
             if self.kd_enabled:
                 sup_losses, kd_losses = set_criterion_pair(
                     out, tgt_masks, tgt_valid, self.crit_cfg, kd_masks, kd_valid,
-                    self.kd_crit_cfg, generator=generator, draws=draws)
+                    self.kd_crit_cfg, generator=generator, draws=draws, outputs_b=kd_out,
+                    draws_b=(draws or {}).get("kd"))
             else:
                 sup_losses = set_criterion(out, tgt_masks, tgt_valid, self.crit_cfg,
                                            generator=generator, draws=draws)
@@ -221,9 +281,10 @@ class KDTrainStep:
 
     def __call__(self, state: TrainState, images: torch.Tensor, tgt_masks: torch.Tensor,
                  tgt_valid: torch.Tensor, generator: torch.Generator | None = None,
-                 draws: Dict | None = None):
+                 draws: Dict | None = None, distill_images: torch.Tensor | None = None,
+                 distill_affine: torch.Tensor | None = None):
         total, metrics, grads = self.loss_and_grads(
-            state, images, tgt_masks, tgt_valid, generator, draws)
+            state, images, tgt_masks, tgt_valid, generator, draws, distill_images, distill_affine)
         finite = bool(torch.isfinite(total))
         with record_function("optimizer"):
             if finite:
@@ -239,9 +300,12 @@ class KDTrainStep:
 
 
 def make_train_step(cfg: Config, kernels: bool = True) -> KDTrainStep:
-    """step(state, images, tgt_masks, tgt_valid, generator=None, draws=None)
-    -> (state, metrics); the state is updated in place.
+    """step(state, images, tgt_masks, tgt_valid, generator=None, draws=None,
+    distill_images=None, distill_affine=None) -> (state, metrics); the state
+    is updated in place.
 
     images (B, T, H, W, 3) normalized and padded; tgt_masks (B, N, T, H, W)
-    bool; tgt_valid (B, N) bool."""
+    bool, or (B, N, T, H, W / 8) uint8 bit-packed along W; tgt_valid (B, N)
+    bool; the distillation view (B, T, H, W, 3) and its affines (B, T, 3, 3)
+    with INPUT.DISENTANGLE_DISTILLATION_LOADER."""
     return KDTrainStep(cfg, kernels)

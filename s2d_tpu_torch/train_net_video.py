@@ -27,7 +27,9 @@ the K1 and K3 kernels and NMS runs K4.
 Without --eval-only it trains (`train`): the KD train state, --resume from
 the latest checkpoint of `<OUTPUT_DIR>/checkpoints`, the train loader over
 DATASETS.TRAIN with the clip mapper and, with DATALOADER.COPY_PASTE, the
-clip copy-paste; SOLVER.MAX_ITER steps of `train.trainer.make_train_step`
+clip copy-paste (the targets bit-packed along W, and with
+INPUT.DISENTANGLE_DISTILLATION_LOADER a second, distillation view of each
+clip); SOLVER.MAX_ITER steps of `train.trainer.make_train_step`
 (K1, K2 and K5 on a CUDA device), the metrics of each step read back after
 the next is dispatched into `<OUTPUT_DIR>/metrics.json`, a checkpoint every
 SOLVER.CHECKPOINT_PERIOD steps and at the end, an evaluation of DATASETS.TEST
@@ -171,15 +173,19 @@ def evaluate(cfg, args, seed: int) -> int:
 
 
 def _upload(batch, device):
-    """A collated numpy batch -> (images, masks, valid) on `device`, from
-    pinned memory and asynchronously on a CUDA device."""
+    """A collated numpy batch -> (images, masks, valid) and the keyword
+    arguments of the distillation view, if the batch has one, on `device`,
+    from pinned memory and asynchronously on a CUDA device."""
     import torch
 
-    out = []
-    for key in ("images", "masks", "valid"):
+    def put(key):
         t = torch.from_numpy(batch[key])
-        out.append(t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t)
-    return out
+        return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+    view = {}
+    if "distill_images" in batch:
+        view = {"distill_images": put("distill_images"), "distill_affine": put("distill_affine")}
+    return [put(key) for key in ("images", "masks", "valid")], view
 
 
 def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
@@ -276,9 +282,9 @@ def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
             timer.start()
             batch = next(loader)
             timer.data_done()
-            images, masks, valid = _upload(batch, device)
+            (images, masks, valid), view = _upload(batch, device)
             gen = trainer.step_generator(seed + 1, state.step, device)
-            state, metrics = step_fn(state, images, masks, valid, generator=gen)
+            state, metrics = step_fn(state, images, masks, valid, generator=gen, **view)
             timer.step_done()
             flush_pending()
             pending = (it, metrics, timer.metrics())

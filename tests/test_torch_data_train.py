@@ -162,10 +162,18 @@ def test_frames_from_a_reader(records):
         _assert_sample(injected(gone), from_files(record), image_atol=0)
 
 
-def test_disentangled_view_raises():
-    cfg = mapper.MapperConfig(disentangle=True)
-    with pytest.raises(NotImplementedError, match="disentangled"):
-        mapper.ClipMapper(cfg)
+def test_disentangled_view_raises(records):
+    """The disentangled view no longer raises (it did until it was ported):
+    a disentangling mapper returns the distillation view and its affines,
+    the same as JAX's on one seed (tests/test_torch_train_options.py holds
+    more draws)."""
+    mine, theirs = _mappers(2)
+    mine.cfg = dataclasses.replace(mine.cfg, disentangle=True)
+    theirs.cfg = dataclasses.replace(theirs.cfg, disentangle=True)
+    got, want = mine(records[0]), theirs(records[0])
+    _assert_sample(got, want)
+    np.testing.assert_array_equal(got["distill_affine"], want["distill_affine"])
+    assert got["distill_image"].shape == want["distill_image"].shape
 
 
 def test_mapper_config_from_the_kd_config():
@@ -187,8 +195,10 @@ def test_collate_matches_jax(records):
     assert set(got) == set(want)
     for key in got:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    with pytest.raises(NotImplementedError, match="bit-packed"):
-        loader.collate_clips(samples, MEAN, STD, pack_masks=True)
+    packed = loader.collate_clips(samples, MEAN, STD, pack_masks=True)
+    np.testing.assert_array_equal(
+        packed["masks"], jax_loader.collate_clips(samples, MEAN, STD, pack_masks=True)["masks"])
+    np.testing.assert_array_equal(np.unpackbits(packed["masks"], axis=-1).astype(bool), got["masks"])
 
 
 def _assert_batches(mine, theirs, n=3):
@@ -209,7 +219,7 @@ def test_train_loader_matches_jax(records, num_shards):
                                    shard_index=shard)
         theirs = jax_loader.train_loader(records, theirs_m, 2, MEAN, STD, seed=3,
                                          num_shards=num_shards, shard_index=shard,
-                                         pack_masks=False)
+                                         pack_masks=True)
         try:
             _assert_batches(mine, theirs)
         finally:
@@ -223,7 +233,7 @@ def test_train_loader_with_copy_paste_matches_jax(records):
         records, mine_m, 3, MEAN, STD, seed=5,
         batch_transform=lambda s: copy_paste.apply_clip_copy_paste(s, mine_rng))
     theirs = jax_loader.train_loader(
-        records, theirs_m, 3, MEAN, STD, seed=5, pack_masks=False,
+        records, theirs_m, 3, MEAN, STD, seed=5, pack_masks=True,
         batch_transform=lambda s: jax_cp.apply_clip_copy_paste(s, theirs_rng))
     try:
         _assert_batches(mine, theirs)

@@ -210,7 +210,8 @@ def test_whole_slice_matches_jax(predictor, jax_run, frames, monkeypatch):
     np.testing.assert_allclose(post["scores"].numpy(), ref["scores"], atol=1e-4)
     np.testing.assert_array_equal(post["keep"].numpy(), ref["keep"])
     # binary masks equal away from the threshold band, < 0.5% boundary flips
-    got_masks = post["masks"].numpy()
+    got_masks = np.empty_like(post["masks"].numpy())  # stored kept-first
+    got_masks[post["order"].numpy()] = post["masks"].numpy()
     ref_masks = ref["masks"]
     assert got_masks.shape == ref_masks.shape == (NUM_PRED, T, *OUT_SIZE)
     from s2d_tpu.ops.resize import interpolate_bilinear as jax_resize

@@ -417,8 +417,13 @@ def test_ema_only_on_accumulation_boundaries():
     ["MODEL.MASK_FORMER.POINT_SAMPLING", "lattice"],
 ])
 def test_unported_train_options_raise(opts):
-    with pytest.raises(NotImplementedError):
-        make_train_step(load_config_tree(None, TINY + opts))
+    """Each option is ported: the step builds with it (it raised before it
+    was ported). As in JAX, NUM_PREDICTIONS_DISTILLATION below the query
+    count still raises, with each option too."""
+    make_train_step(load_config_tree(None, TINY + opts))
+    with pytest.raises(NotImplementedError, match="NUM_PREDICTIONS_DISTILLATION"):
+        make_train_step(load_config_tree(
+            None, TINY + opts + ["MODEL.MASK_FORMER.NUM_PREDICTIONS_DISTILLATION", "4"]))
 
 
 # --------------------------------------------------------------------------
