@@ -15,9 +15,11 @@
    frames) and the train step's (B = 6), K3 flash attention at each key
    length of the decoder (1920, 7680, 30720; its time a clip is 3 launches
    at each) (K1 and K3 at atol 1e-4 in f32: summation order, the 3xTF32
-   products and exp differ), K4 NMS (exactly, at N = 1, 50, 64, 65 and
-   1024 with label ties; timed at the main path's N = 50 beside the device
-   time of an empty kernel launch, its floor), K2 MSDA backward at the
+   products and exp differ), K4 NMS (exactly, at N = 1, 50, 64, 65, 127
+   (the one-block kernel's last), 128, 1024, 1025 and 4096 (the scratch
+   path: a grid writes the rows, one warp walks them) with label ties, and
+   the one-block kernel forced at 1024, its most; timed at the main path's N
+   = 50 beside the device time of an empty kernel launch, its floor), K2 MSDA backward at the
    train step's shapes (d value at atol 1e-4: K2 sums it in fixed point,
    the plain version in f32; d locations and d weights at atol 1e-4 + 2e-5
    max|d|: f32 rounding of the sampling coordinates; no sampling coordinate
@@ -151,6 +153,24 @@
    and packed targets) against the kernel step, the hard decisions
    replayed, losses at rtol 1e-3 / atol 2e-3 and the distillation NMS's
    validity identical. The parent side of --compare skips this phase.
+15. drives stage 1, the CutLER detector's CLI (`s2d_tpu_torch.train_net
+   .main`, see `cutler_path`), at full width on
+   configs/cuts3d/original_cascade_mask_rcnn_R_50_FPN.yaml (R50-FPN, 256
+   channels, a cascade at IoU 0.5/0.6/0.7, the mask head, pre-NMS top-k
+   1000, 256 proposals), image size 512, IMS_PER_BATCH 16 as accumulation,
+   copy-paste on, seeded weights, over a synthetic COCO set of 8 PNG images
+   at 480x640 with 3-6 RLE ellipses each (under build/, removed at the
+   end): --max-iter 2, --resume to 3, --eval-only, --tta over 2 images;
+   checks K4 once a micro-step, twice an eval image and twice a TTA
+   augmentation plus once a merge, finite losses, moved parameters, the
+   resumed state bit for bit and the AP keys; then holds K4 to its plain
+   loop at the box NMS's shapes (each run's first input of each size that
+   it gave K4: the RPN's N = 1000, the cascade's 256, the TTA merge's 180;
+   seeded boxes with score ties at N = 1025, 1800 and 4096: the kernel's
+   large path) and times it at N = 180, 256, 1000 and 1800 (and its two
+   paths at N = 50-1000); prints ms a micro-step, a
+   train iteration, an eval image and a TTA image, the peak memory and the
+   phase's seconds. The parent side of --compare skips this phase.
 With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
@@ -200,7 +220,11 @@ METRIC_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10", "AR100"
 TRAIN_B, TRAIN_T, TRAIN_H, TRAIN_W, TRAIN_SLOTS, TRAIN_STEPS = 2, 3, 368, 640, 25, 3
 OFFSET_STD = 0.01  # the encoder's sampling-offset weights (see `new_train_state`)
 INTERLEAVED_RUNS = 5  # K6 empty and torch.zeros, timed in turns
-NMS_SIZES = (1, 50, 64, 65, 1024)  # K4: one, the main path's, 32-bit word edges, the most
+# K4: one, the main path's, 32-bit word edges, the last of the one-block
+# kernel and the first of the scratch path (nms.WALK_FROM = 128), the
+# CutLER TTA merge's and cascade's (2 uint4 lanes a row on the scratch
+# path), 32 words of the removed set and one more, the most
+NMS_SIZES = (1, 50, 64, 65, 127, 128, 180, 256, 1024, 1025, 4096)
 K2_CALLS = 3  # K2 calls on one input that must agree bit for bit
 # --compare runs the parent's checkout with this variable set: the checks of
 # what the parent does not have yet print their result without failing
@@ -220,6 +244,13 @@ TRAIN_SET_VIDEOS, TRAIN_SET_LENGTH, TRAIN_SET_INSTANCES = 6, 10, (3, 8)
 CLI_EVAL_LENGTHS = (8, 5)
 CLI_ITERS = (4, 6)
 MIN_TRACKS = 10  # NMS survivors the eval phase needs in each video
+# phase 15: stage 1, the CutLER detector (config, synthetic COCO set, runs)
+CUTLER_CONFIG = "configs/cuts3d/original_cascade_mask_rcnn_R_50_FPN.yaml"
+CUTLER_IMAGES = 8
+CUTLER_HW = (480, 640)
+CUTLER_ITERS = (2, 3)  # --max-iter of the first run, then of the resumed one
+CUTLER_TTA_IMAGES = 2
+CUTLER_NMS_SIZES = (1025, 1800, 4096)  # K4's large path: seeded boxes
 # phase 13: keymask discovery's synthetic set (videos, frames a video,
 # objects a video), the CLI's grid, and a group's least share of an
 # object's frames at mask IoU >= 0.5
@@ -278,7 +309,10 @@ def cuda_ms(fn, iters: int = 20) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    sleep_s = min(MAX_SLEEP_S, 2e-3 * iters * host_ms(fn, 2, 1))
+    # ten times the enqueue time of the calls (the median of 3 loops of 5): a
+    # wrapper whose host time is ~10x its kernel's (K4) must not drain the
+    # queue when its enqueue runs slower than the estimate
+    sleep_s = min(MAX_SLEEP_S, 1e-2 * iters * host_ms(fn, 5, 3))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
@@ -571,7 +605,8 @@ def kernel_checks(dev, record):
     # at each of NMS_SIZES: the keep mask must match exactly. Timed at the
     # main path's N = 50, beside the device time of an empty launch
     rng = np.random.RandomState(SEED)
-    for n in NMS_SIZES:
+    sizes = [n for n in NMS_SIZES if n <= k4.MAX_CANDIDATES]  # a parent's K4 takes 1024
+    for n in sizes:
         for trial in range(8):
             iou = rng.rand(n, n).astype(np.float32)
             if trial % 2:
@@ -587,7 +622,17 @@ def kernel_checks(dev, record):
                 raise AssertionError(f"K4 keep mask differs from plain (N={n}, trial {trial})")
         if n == 50:
             main_nms = (iou_t, lab_t, got)
-    print(f"  K4 vs plain: 8 keep masks identical at each N of {NMS_SIZES}")
+    if hasattr(k4, "WALK_FROM"):  # the one-block kernel at its most, which the wrapper
+        walk_from, k4.WALK_FROM = k4.WALK_FROM, k4.MAX_CANDIDATES + 1  # gives the scratch path
+        try:
+            iou_t, lab_t = iou_t[:1024, :1024].contiguous(), lab_t[:1024]
+            if not torch.equal(k4.greedy_mask_nms(iou_t, lab_t, 0.75),
+                               k4.greedy_mask_nms_plain(iou_t, lab_t, 0.75)):
+                raise AssertionError("K4's one-block kernel differs from plain at N=1024")
+        finally:
+            k4.WALK_FROM = walk_from
+    print(f"  K4 vs plain: 8 keep masks identical at each N of {sizes}"
+          + (", the one-block kernel's at 1024 too" if hasattr(k4, "WALK_FROM") else ""))
     iou_t, lab_t, got = main_nms
     record["k4_nms"] = dict(
         name="greedy_nms", route="cuda", source="s2d_tpu_torch/csrc/nms.cu",
@@ -2291,6 +2336,336 @@ def _keymask_run(dev, root: Path, frame_hw, length, cotracker_check) -> None:
         np.testing.assert_allclose(got_vis, ref_vis, rtol=0, atol=COTRACKER_VIS_ATOL)
 
 
+def write_coco_set(root: Path, name: str, rng, n=CUTLER_IMAGES, hw=CUTLER_HW) -> None:
+    """A COCO-format image set of `n` PNG images at `hw` (seeded noise under
+    3-6 flat-coloured ellipses, each annotated as an RLE mask and its box),
+    registered as `name`."""
+    from s2d_tpu_torch.data import coco, rle
+    from s2d_tpu_torch.data.png import write_png
+
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n):
+        img = rng.randint(0, 90, (h, w, 3), dtype=np.uint8)
+        for _ in range(rng.randint(3, 7)):
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            ry, rx = rng.uniform(0.06, 0.25) * h, rng.uniform(0.06, 0.25) * w
+            m = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+            img[m] = rng.randint(110, 256, 3)
+            ys, xs = np.nonzero(m)
+            seg = rle.encode(m)
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": i + 1, "category_id": 1, "iscrowd": 0,
+                "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
+                         float(ys.max() - ys.min() + 1)],
+                "area": int(m.sum()), "segmentation": {"size": [h, w], "counts": seg["counts"]}})
+        write_png(str(root / "images" / f"{i:03d}.png"), img)
+        images.append({"id": i + 1, "file_name": f"{i:03d}.png", "height": h, "width": w})
+    path = root / "instances.json"
+    path.write_text(json.dumps({"images": images, "annotations": annotations,
+                                "categories": [{"id": 1, "name": "fg"}]}))
+    coco.register_coco(name, str(path), str(root / "images"), class_agnostic=True)
+    print(f"COCO set {name}: {n} PNG images at {h}x{w}, {len(annotations)} RLE instances")
+
+
+def tta_launches(cfg, images: int) -> int:
+    """K4 launches of the --tta pass over `images` images: per augmentation
+    (each TEST.AUG.MIN_SIZES scale, and its flip) the boxes pass's RPN and
+    cascade NMS (the mask pass, `mask_logits_at`, runs none), then one
+    merge."""
+    augs = len(cfg.test_aug_min_sizes) * (2 if cfg.test_aug_flip else 1)
+    return images * (2 * augs + 1)
+
+
+def box_nms_inputs(dev, n, rng):
+    """Seeded boxes at N = n in a 512x512 canvas with score ties (scores
+    rounded to 1/16): (score-sorted IoU (n, n), zero labels)."""
+    from s2d_tpu_torch.ops.boxes import pairwise_iou
+
+    xy = rng.uniform(0, 448, (n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 160, (n, 2))], 1).astype(np.float32)
+    scores = np.round(rng.rand(n) * 16) / 16
+    order = np.argsort(-scores, kind="stable")
+    b = torch.from_numpy(boxes[order]).to(dev)
+    return pairwise_iou(b, b).contiguous(), torch.zeros(n, dtype=torch.int64, device=dev)
+
+
+def box_nms_check(dev, record, captured, rng) -> None:
+    """K4 at the box NMS's shapes against its plain loop on the card, keep
+    sets exactly: `captured`, the first input of each size that each CLI
+    run gave K4 ({(run, N): (iou, labels, threshold)}: the RPN's N = 1000,
+    the cascade's 256, the TTA merge's augmentations x DETECTIONS_PER_IMAGE),
+    at its own threshold and at 0.5, and N = 1025, 1800 (the TTA merge at
+    the CutLER defaults) and 4096 (the most) from seeded boxes with score
+    ties, at 0.5 and 0.7; then K4's device time at each captured N and at
+    1800 beside its plain loop's, its bound and the empty-launch floor, and
+    its two paths' at N = 50, 128, 256 and 1000."""
+    from s2d_tpu_torch.ops import nms
+
+    cases = dict(captured)
+    for n in CUTLER_NMS_SIZES:
+        cases[("seeded", n)] = box_nms_inputs(dev, n, rng) + (0.7,)
+    for (run, n), (iou, labels, thresh) in cases.items():
+        for t in sorted({thresh, 0.5}):
+            got = nms.greedy_mask_nms(iou, labels, t)
+            ref = nms.greedy_mask_nms_plain(iou, labels, t)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K4 box NMS differs from plain at N={n} ({run}), threshold {t}")
+    by_n = {}
+    for run, n in cases:
+        by_n.setdefault(n, []).append(run)
+    print("  K4 box NMS vs plain: keep sets identical at N = " + "; ".join(
+        f"{n} ({', '.join(runs)})" for n, runs in sorted(by_n.items())))
+    timed = {}
+    for (run, n), case in cases.items():  # the first run's input of each captured N, and 1800
+        if n not in timed and (run != "seeded" or n == 1800):
+            timed[n] = case
+    times = {}
+    for n, (iou, labels, thresh) in sorted(timed.items()):
+        b = bound(nbytes(iou, labels) + n, n * (n - 1) / 2)
+        times[n] = dict(ms=cuda_ms(lambda: nms.greedy_mask_nms(iou, labels, thresh)),
+                        plain_ms=cuda_ms(lambda: nms.greedy_mask_nms_plain(iou, labels, thresh),
+                                         iters=3),
+                        kept=int(nms.greedy_mask_nms(iou, labels, thresh).sum()), **b)
+    floor = record["k4_nms"].get("launch_floor_ms", float("nan"))
+    record["k4_nms"]["box_nms"] = {str(n): t for n, t in times.items()}
+    print("  K4 box NMS device ms: " + "; ".join(
+        f"N={n} {t['ms']:.4f} (plain {t['plain_ms']:.2f}, kept {t['kept']}, bound "
+        f"{t['bound_ms']:.2e} by {t['bound_by']})"
+        for n, t in times.items())
+          + f"; N=50 {record['k4_nms']['ms']:.4f}; empty launch {floor:.4f}")
+    # the two paths at the sizes around nms.WALK_FROM and at the RPN's
+    paths = {}
+    walk_from = nms.WALK_FROM
+    try:
+        for n in (50, 128, 256, 1000):
+            iou, labels = box_nms_inputs(dev, n, rng)
+            for name, first_walked in (("one-block", n + 1), ("scratch", n)):
+                nms.WALK_FROM = first_walked
+                paths[(n, name)] = cuda_ms(lambda: nms.greedy_mask_nms(iou, labels, 0.7))
+    finally:
+        nms.WALK_FROM = walk_from
+    print(f"  K4's paths (WALK_FROM = {walk_from}), device ms one-block / scratch: " + "; ".join(
+        f"N={n} {paths[(n, 'one-block')]:.4f} / {paths[(n, 'scratch')]:.4f}" for n in (50, 128, 256, 1000)))
+
+
+def cutler_path(dev, record, image_size=512, hw=CUTLER_HW, images=CUTLER_IMAGES,
+                opts=()) -> int:
+    """Phase 15: stage 1, the CutLER detector's CLI (`s2d_tpu_torch.train_net
+    .main`) at full width on `configs/cuts3d/original_cascade_mask_rcnn_R_50
+    _FPN.yaml` (R50-FPN, 256 channels, a cascade at 0.5/0.6/0.7, the mask
+    head, pre-NMS top-k 1000, 256 proposals, IMS_PER_BATCH 16 as
+    accumulation, copy-paste on; `opts` are extra flags a rehearsal off the
+    card passes), seeded weights, image size 512, over a synthetic COCO set
+    (`write_coco_set`) written under build/ and removed at the end:
+    --max-iter 2, then --resume to 3 (evaluating 2 images after each), then
+    --eval-only over the set, then --tta over 2 images. Checks: one K4
+    launch a micro-step, two an eval image, `tta_launches` for the TTA
+    pass; finite losses in metrics.json; moved parameters; the state the
+    resumed run restored equal to its checkpoint bit for bit; the AP keys.
+    Then `box_nms_check` on the inputs the runs gave K4. Prints ms a micro-step (synchronized), a train
+    iteration, an eval image and a TTA image, the peak device memory and
+    the phase's seconds. Returns the K4 launches of the four runs."""
+    from s2d_tpu_torch import train_net
+    from s2d_tpu_torch.checkpoint import io as ckpt_io
+    from s2d_tpu_torch.checkpoint.io import STATE_FILE
+    from s2d_tpu_torch.evaluation import tta_rcnn
+    from s2d_tpu_torch.models.cutler import CutlerRCNN, init_parameters
+    from s2d_tpu_torch.ops import boxes as box_ops
+    from s2d_tpu_torch.ops import nms
+    from s2d_tpu_torch.train import cutler_trainer
+
+    started = time.perf_counter()
+    root = Path("build") / "chip_smoke_cutler"
+    shutil.rmtree(root, ignore_errors=True)
+    name = "chip_smoke_coco"
+    rng = np.random.RandomState(SEED + 15)
+    write_coco_set(root / "set", name, rng, images, hw)
+    out = root / "out"
+    base = ["--config-file", CUTLER_CONFIG, "--train-dataset", name, "--test-dataset", name,
+            "--output-dir", str(out), "--image-size", str(image_size), "--device", dev.type, *opts]
+    runs = {"train": base + ["--max-iter", str(CUTLER_ITERS[0]), "--max-images", "2"],
+            "resume": base + ["--max-iter", str(CUTLER_ITERS[1]), "--max-images", "2", "--resume"],
+            "eval": base + ["--eval-only"],
+            "tta": base + ["--eval-only", "--tta", "--max-images", str(CUTLER_TTA_IMAGES)]}
+    cfg = train_net.build_config(train_net.parse_args(runs["train"]))[0]
+    accum = cfg.accum_steps
+    total = CUTLER_ITERS[1] * accum
+
+    micro, evals, ttas, restored = [], [], [], []
+    own_make, own_cascade = cutler_trainer.make_cutler_train_step, cutler_trainer.cascade_detections
+    own_tta, own_restore = tta_rcnn.tta_inference, ckpt_io.restore_checkpoint
+    own_nms, captured, run = box_ops.greedy_mask_nms, {}, [None]
+
+    def box_nms_kernel(iou, labels, threshold):  # keeps each run's first input of each N
+        key = (run[0], iou.shape[0])
+        if key not in captured:
+            captured[key] = (iou.clone(), labels.clone(), threshold)
+        return own_nms(iou, labels, threshold)
+
+    def make_step(model, cfg_, optimizer):
+        step_fn = own_make(model, cfg_, optimizer)
+
+        def step(*args):
+            # the first run's micro-steps synchronized (each one's own time),
+            # the resumed run's as shipped, but for a synchronize after its
+            # last (the iteration's wall)
+            before, t0 = nms.LAUNCHES, time.perf_counter()
+            metrics = step_fn(*args)
+            if len(micro) < CUTLER_ITERS[0] * accum or len(micro) == total - 1:
+                torch.cuda.synchronize(dev)
+            micro.append((t0, time.perf_counter(), nms.LAUNCHES - before))
+            return metrics
+        return step
+
+    def cascade(*args, **kwargs):  # after each forward: an eval image, a TTA augmentation
+        result = own_cascade(*args, **kwargs)
+        torch.cuda.synchronize(dev)
+        evals.append(time.perf_counter())
+        return result
+
+    def tta(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = own_tta(*args, **kwargs)
+        ttas.append(time.perf_counter() - t0)
+        return result
+
+    def restore(ckpt_dir, state, step=None):
+        got = own_restore(ckpt_dir, state, step)
+        sd = state.state_dict()
+        restored.append((step, {**{f"model.{k}": v.to("cpu", copy=True) for k, v in sd["model"].items()},
+                                **{f"trace.{n}": v.to("cpu", copy=True) for n, v in
+                                   zip(sd["optimizer"]["names"], sd["optimizer"]["trace"])},
+                                **{f"acc.{n}": v.to("cpu", copy=True) for n, v in
+                                   zip(sd["optimizer"]["names"], sd["optimizer"]["acc"] or [])}},
+                         (sd["step"], sd["optimizer"]["count"], sd["optimizer"]["mini_step"])))
+        return got
+
+    launches, walls, printed = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    cutler_trainer.make_cutler_train_step, cutler_trainer.cascade_detections = make_step, cascade
+    tta_rcnn.tta_inference, ckpt_io.restore_checkpoint = tta, restore
+    box_ops.greedy_mask_nms = box_nms_kernel
+    try:
+        for key, argv in runs.items():
+            run[0] = key
+            nms.LAUNCHES = 0
+            n_micro, n_evals = len(micro), len(evals)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_net.main(argv)
+            walls[key] = time.perf_counter() - t0
+            printed[key] = buf.getvalue()
+            if rc != 0:
+                raise AssertionError(f"CutLER CLI {key}: exit {rc}")
+            launches[key] = nms.LAUNCHES
+            if key == "eval":
+                eval_calls = evals[n_evals:]
+            steps = len(micro) - n_micro
+            eval_images = images if key == "eval" else 2
+            tta_images = CUTLER_TTA_IMAGES if key == "tta" else 0
+            want = steps + 2 * eval_images + tta_launches(cfg, tta_images)
+            if launches[key] != want or any(m[2] != 1 for m in micro[n_micro:]):
+                raise AssertionError(f"CutLER CLI {key}: {launches[key]} K4 launches, expected "
+                                     f"{want} ({steps} micro-steps, {eval_images} eval images, "
+                                     f"{tta_images} TTA images)")
+    finally:
+        cutler_trainer.make_cutler_train_step, cutler_trainer.cascade_detections = own_make, own_cascade
+        tta_rcnn.tta_inference, ckpt_io.restore_checkpoint = own_tta, own_restore
+        box_ops.greedy_mask_nms = own_nms
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    if len(micro) != total:
+        raise AssertionError(f"CutLER CLI: {len(micro)} micro-steps, expected {total}")
+    lines = [json.loads(x) for x in (out / "metrics.json").read_text().splitlines()]
+    if [x["iteration"] for x in lines] != list(range(CUTLER_ITERS[1])) or not all(
+            np.isfinite(v) for x in lines for v in x.values()):
+        raise AssertionError(f"CutLER CLI: metrics.json {lines}")
+    for key in ("train", "resume", "eval", "tta"):
+        keys = ("bbox/AP:", "segm/AP:") + (("bbox_TTA/AP:", "segm_TTA/AP:") if key == "tta" else ())
+        if not all(k in printed[key] for k in keys):
+            raise AssertionError(f"CutLER CLI {key}: no {keys} in {printed[key][-2000:]}")
+    saved = sorted(int(p.name) for p in (out / "checkpoints").iterdir() if p.name.isdigit())
+    if saved != [CUTLER_ITERS[0] * accum, total] or len(restored) != 1:
+        raise AssertionError(f"CutLER CLI: checkpoints {saved}, {len(restored)} restores")
+    step, got, counts = restored[0]
+    want = torch.load(out / "checkpoints" / str(saved[0]) / STATE_FILE, map_location="cpu",
+                      weights_only=True)
+    want_flat = {**{f"model.{k}": v for k, v in want["model"].items()},
+                 **{f"trace.{n}": v for n, v in zip(want["optimizer"]["names"], want["optimizer"]["trace"])},
+                 **{f"acc.{n}": v for n, v in zip(want["optimizer"]["names"], want["optimizer"]["acc"] or [])}}
+    differ = [k for k in want_flat if not torch.equal(got[k], want_flat[k])]
+    if set(got) != set(want_flat) or differ or counts != (
+            want["step"], want["optimizer"]["count"], want["optimizer"]["mini_step"]):
+        raise AssertionError(f"CutLER CLI: the restored state differs from its checkpoint in "
+                             f"{differ[:5]}, counts {counts}")
+    final = torch.load(out / "checkpoints" / str(total) / STATE_FILE, map_location="cpu",
+                       weights_only=True)["model"]
+    seeded = CutlerRCNN(cfg.rcnn)
+    init_parameters(seeded, torch.Generator().manual_seed(0))
+    moved = sum(not torch.equal(v, final[k]) for k, v in seeded.state_dict().items())
+    if moved < len(final) // 2:
+        raise AssertionError(f"CutLER CLI: only {moved} of {len(final)} tensors moved")
+
+    augs = len(cfg.test_aug_min_sizes) * (2 if cfg.test_aug_flip else 1)
+    per_image = min(cfg.detections_per_image, cfg.rcnn.num_proposals)
+    shapes = {"rpn": cfg.rcnn.pre_nms_topk, "cascade": cfg.rcnn.num_proposals,
+              "tta merge": augs * per_image}
+    seen = {n for _, n in captured}
+    if not set(shapes.values()) <= seen:
+        raise AssertionError(f"CutLER CLI: K4 saw N = {sorted(seen)}, expected {shapes}")
+    box_nms_check(dev, record, captured, rng)
+    del seeded
+
+    # the train loop's host work a micro-step, alone: map an image, paste the previous one
+    from s2d_tpu_torch.data.coco import get_coco_dataset
+    from s2d_tpu_torch.data.copy_paste import copy_paste_image
+
+    map_ms, paste_ms, prev = [], [], None
+    for rec in get_coco_dataset(name)[0]:
+        t0 = time.perf_counter()
+        sample = cutler_trainer.map_image_record(rec, cfg, rng, is_train=True, normalize=False)
+        t1 = time.perf_counter()
+        if prev is not None:
+            copy_paste_image(rng, sample, prev, rate=cfg.copy_paste_rate,
+                             min_ratio=cfg.copy_paste_min_ratio, max_ratio=cfg.copy_paste_max_ratio,
+                             random_num=cfg.copy_paste_random_num)
+            paste_ms.append(1e3 * (time.perf_counter() - t1))
+        map_ms.append(1e3 * (t1 - t0))
+        prev = sample
+
+    first = CUTLER_ITERS[0] * accum
+    later = [1e3 * (m[1] - m[0]) for m in micro[1:first]]
+    resumed = micro[first:]
+    iteration_ms = 1e3 * (resumed[-1][1] - resumed[0][0])
+    eval_ms = 1e3 * np.diff(eval_calls)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"CutLER path: {len(micro)} micro-steps at {image_size}x{image_size}, "
+          f"{np.median(later):.1f} ms a micro-step (median of the first run's after its first, "
+          f"each synchronized; {min(later):.1f}-{max(later):.1f}), the resumed run's iteration "
+          f"of {accum} micro-steps {iteration_ms:.1f} ms (the loop as shipped: mapping and "
+          f"copy-paste on the host beside the steps on the card); "
+          f"{np.median(eval_ms):.1f} ms an eval image (median of the --eval-only run's "
+          f"{len(eval_ms)} intervals after its first; forward and detections, synchronized); "
+          f"{1e3 * np.mean(ttas):.1f} ms a TTA image ({', '.join(f'{t * 1e3:.1f}' for t in ttas)}; "
+          f"{len(cfg.test_aug_min_sizes)} scales x 2 flips on a "
+          f"{tta_rcnn.tta_canvas_size(cfg.test_aug_min_sizes, cfg.test_aug_max_size)}^2 canvas, "
+          f"masks included); peak device memory {peak / 2**30:.2f} GiB; host alone "
+          f"{np.median(map_ms):.1f} ms to map a train image, {np.median(paste_ms):.1f} ms to "
+          f"copy-paste (medians of {len(map_ms)}, {len(paste_ms)})")
+    print(f"  K4 launches: train {launches['train']}, resume {launches['resume']}, eval "
+          f"{launches['eval']}, tta {launches['tta']} (1 a micro-step, 2 an eval image, "
+          f"{tta_launches(cfg, 1)} a TTA image); checkpoints {saved}, the restored state "
+          f"equals its checkpoint bit for bit; {moved} of {len(final)} tensors moved; runs "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    print(f"  {printed['eval'].strip().splitlines()[-1][:160]}")
+    print(f"CutLER phase: {time.perf_counter() - started:.1f} s")
+    return sum(launches.values())
+
+
 COMPARE_ORDER = ("parent", "change", "change", "parent")
 # the lines of a run's log that the comparison prints under the run's header
 COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per span",
@@ -2300,7 +2675,7 @@ COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per sp
                  "train CLI", "keymask", "  correlation tracker", "  cotracker", "  stage seconds",
                  "  readback:", "  whole-mask read", "crop check", "options path",
                  "plain vs kernel options", "  distillation NMS", "options phase",
-                 "chip_smoke:")
+                 "CutLER", "  K4 box NMS", "  K4 launches", "chip_smoke:")
 
 
 def compare_checkouts(parent: Path, profile: bool) -> None:
@@ -2475,6 +2850,9 @@ def main(argv=None) -> int:
         compare_options_step(dev, class_scale)
         print(f"options phase: {time.perf_counter() - start:.1f} s")
 
+    # 15. stage 1: the CutLER detector's CLI (train, resume, eval, TTA), K4's box NMS
+    cutler = cutler_path(dev, record) if not PARENT else 0
+
     on_options = lambda key: {"kd_options": options[key]} if options else {}  # noqa: E731
     by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
                            "eval": eval_launches["k1_msda"], "train_cli": cli_launches["k1_msda"],
@@ -2482,7 +2860,8 @@ def main(argv=None) -> int:
                "k3_flash": {"inference": launches["k3_flash"], "eval": eval_launches["k3_flash"],
                             "train_cli": cli_launches["k3_flash"]},
                "k4_nms": {"inference": launches["k4_nms"], "eval": eval_launches["k4_nms"],
-                          "train_cli": cli_launches["k4_nms"], **on_options("k4_nms")},
+                          "train_cli": cli_launches["k4_nms"], **on_options("k4_nms"),
+                          **({"cutler": cutler} if not PARENT else {})},
                "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"],
                                "train_cli": cli_launches["k2_msda_bwd"], **on_options("k2_msda_bwd")},
                "k5_auction": {"train": train_launches["k5_auction"],

@@ -48,8 +48,10 @@ SIGNATURES = {
     "s2d_masked_attention_fwd": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _F, _I, _P,
     ),
-    # iou, labels (int64), keep, N, threshold, stream
-    "s2d_greedy_nms": (_P, _P, _P, _I, _F, _P),
+    # iou, labels (int64), scratch (N > 1024), keep, N, threshold, stream
+    "s2d_greedy_nms": (_P, _P, _P, _P, _I, _F, _P),
+    # N: the scratch words s2d_greedy_nms needs
+    "s2d_greedy_nms_scratch_words": (_I,),
     # stream: an empty kernel, the launch floor
     "s2d_empty_launch": (_P,),
     # variant, vt, ya, wy0, wy1, x0, wx0, wx1, out, ng, W*d, k, gqp, W, d, stream

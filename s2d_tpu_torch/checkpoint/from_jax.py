@@ -4,6 +4,12 @@ The port's parameter names follow the flax tree, so each flax leaf maps to
 exactly one port tensor:
 
   a/b/kernel (4-D, HWIO)  -> a.b.weight, transposed to OIHW
+  a/deconv/kernel (4-D)   -> a.deconv.weight, flipped in H and W and laid out
+                             (I, O, H, W): flax's ConvTranspose (default
+                             transpose_kernel=False) computes out[2i + a] =
+                             x[i] k[1 - a], torch's ConvTranspose2d
+                             out[2i + a] = x[i] w[a]; the names of
+                             CONV_TRANSPOSE (the CutLER mask head's deconv)
   a/b/kernel (2-D, in,out) -> a.b.weight, transposed to (out, in)
   a/out/kernel (3-D, heads, head_dim, out) and a/b/kernel (3-D, in, heads,
   head_dim): the output and input projections of flax's
@@ -27,6 +33,9 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+# flax ConvTranspose modules of the port's models, by module name
+CONV_TRANSPOSE = ("deconv",)
+
 
 def _port_name(path: str) -> str:
     parts = path.split("/")
@@ -43,6 +52,8 @@ def _port_value(path: str, value: np.ndarray) -> np.ndarray:
         return value.reshape(-1)
     if parts[-1] != "kernel":
         return value
+    if value.ndim == 4 and parts[-2] in CONV_TRANSPOSE:  # HWIO -> flipped IOHW
+        return value[::-1, ::-1].transpose(2, 3, 0, 1)
     if value.ndim == 4:  # HWIO -> OIHW
         return value.transpose(3, 2, 0, 1)
     if value.ndim == 2:  # (in, out) -> (out, in)
@@ -91,15 +102,26 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: data[k] for k in data.files}
 
 
-def _jax_leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+def flax_path(name: str, ndim: int) -> str:
+    """The flax leaf path ("a/b/kernel") of the port's tensor `name` of rank
+    `ndim`, as `params_to_jax` names it (without the leading "params/")."""
     parts = name.split(".")
     if parts[-1] == "weight":
+        return "/".join(parts[:-1] + ["kernel" if ndim in (2, 4) else "scale"])
+    return "/".join(parts)
+
+
+def _jax_leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    parts = name.split(".")
+    path = flax_path(name, value.ndim)
+    if parts[-1] == "weight":
+        if value.ndim == 4 and parts[-2] in CONV_TRANSPOSE:  # flipped IOHW -> HWIO
+            return path, value.transpose(2, 3, 0, 1)[::-1, ::-1]
         if value.ndim == 4:  # OIHW -> HWIO
-            return "/".join(parts[:-1] + ["kernel"]), value.transpose(2, 3, 1, 0)
+            return path, value.transpose(2, 3, 1, 0)
         if value.ndim == 2:  # (out, in) -> (in, out)
-            return "/".join(parts[:-1] + ["kernel"]), value.T
-        return "/".join(parts[:-1] + ["scale"]), value
-    return "/".join(parts), value
+            return path, value.T
+    return path, value
 
 
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:

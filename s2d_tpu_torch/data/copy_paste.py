@@ -9,8 +9,12 @@ rejected as a whole when, at frame 0, a pasted instance covers at least
 half of an existing one (intersection over the existing instance's area).
 Pasted pixels overwrite the destination image; existing instances are
 carved and dropped when carved to nothing. A host-side numpy transform on
-the loader thread, before collation (DATALOADER.COPY_PASTE). The image
-copy-paste of the CutLER path (`copy_paste_image`) is not ported.
+the loader thread, before collation (DATALOADER.COPY_PASTE).
+
+`copy_paste_image` is the CutLER trainer's image copy-paste, on one mapped
+image (a uint8 canvas in the port's train CLI, which normalizes on the
+device; JAX pastes the normalized float canvas, so the rescaled source's
+pixels round to uint8 here).
 """
 from __future__ import annotations
 
@@ -145,4 +149,100 @@ def apply_clip_copy_paste(
                                    max_ratio=max_ratio, random_num=random_num))
         new["masks"] = propagate_sparse_masks(new["masks"], new["valid"], rng, max_shift)
         out.append(new)
+    return out
+
+
+def _boxes_from_masks(masks: np.ndarray) -> np.ndarray:
+    """(N, H, W) bool -> (N, 4) xyxy boxes (zeros for empty masks)."""
+    n = masks.shape[0]
+    boxes = np.zeros((n, 4), np.float32)
+    for i in range(n):
+        ys, xs = np.nonzero(masks[i])
+        if len(ys):
+            boxes[i] = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+    return boxes
+
+
+def copy_paste_image(
+    rng: np.random.RandomState,
+    dst: Dict[str, np.ndarray],  # cutler sample: image (S,S,3), boxes, labels, valid, masks (N,S,S)
+    src: Dict[str, np.ndarray],
+    rate: float = 1.0,
+    min_ratio: float = 0.5,
+    max_ratio: float = 1.0,
+    reject_ioy: float = 0.5,
+    random_num: bool = True,
+) -> Dict[str, np.ndarray]:
+    """Image copy-paste for the CutLER trainer.
+
+    The reference's `copy_and_paste` (cutler/engine/train_loop.py, applied
+    per step in `run_step`): the whole source canvas is rescaled by a ratio of the
+    DESTINATION size, randomly placed, and the selected source instances'
+    pixels composite over the destination; copied instances whose IoY with
+    any existing instance exceeds 0.5 are dropped; surviving existing
+    instances are carved where pasted pixels cover them and zero-area
+    leftovers invalidated; boxes are recomputed from the merged masks.
+    Works on the mapper's canvas, uint8 or normalized float32."""
+    if rng.rand() >= rate:
+        return dst
+    src_ids = np.flatnonzero(src["valid"])
+    if len(src_ids) == 0:
+        return dst
+    if random_num:
+        k = 1 if len(src_ids) == 1 else rng.randint(1, len(src_ids))
+        src_ids = rng.choice(src_ids, k, replace=False)
+
+    s = dst["image"].shape[0]
+    ratio = rng.uniform(min_ratio, max_ratio)
+    ns = max(int(ratio * s), 1)
+    dy = rng.randint(0, s - ns + 1)
+    dx = rng.randint(0, s - ns + 1)
+
+    src_img = resize_linear(src["image"], (ns, ns))
+    canvas_img = np.zeros_like(dst["image"])
+    canvas_img[dy:dy + ns, dx:dx + ns] = src_img
+
+    pasted = np.zeros((len(src_ids), s, s), bool)
+    for j, sid in enumerate(src_ids):
+        m = resize_nearest(src["masks"][sid], (ns, ns))
+        pasted[j, dy:dy + ns, dx:dx + ns] = m
+
+    # IoY rejection against existing instances (intersection / pasted area)
+    existing = dst["masks"][dst["valid"]]
+    keep = np.ones(len(src_ids), bool)
+    if existing.shape[0]:
+        inter = (pasted[:, None] & existing[None]).sum((-1, -2)).astype(np.float64)
+        area_y = np.maximum(existing.sum((-1, -2)).astype(np.float64), 1.0)
+        keep = (inter / area_y).max(axis=1) < reject_ioy
+    pasted = pasted[keep]
+    kept_ids = src_ids[keep]
+    # Cap at the free annotation slots BEFORE carving (carving can only
+    # free more), so every composited object gets a label — compositing
+    # unassignable masks would paint unannotated objects that occlude
+    # labeled ones. (The reference appends Instances unboundedly; the
+    # fixed-slot layout must truncate instead.)
+    n_free = int((~dst["valid"]).sum())
+    pasted = pasted[:n_free]
+    kept_ids = kept_ids[:n_free]
+    if pasted.shape[0] == 0:
+        return dst
+
+    alpha = pasted.any(axis=0)
+    image = np.where(alpha[..., None], canvas_img, dst["image"])
+    masks = dst["masks"].copy()
+    masks &= ~alpha  # carve occluded pixels out of existing instances
+    valid = dst["valid"] & (masks.sum((-1, -2)) > 0)
+    labels = dst["labels"].copy()
+
+    free = np.flatnonzero(~valid)
+    for j in range(min(len(free), pasted.shape[0])):
+        masks[free[j]] = pasted[j]
+        valid[free[j]] = True
+        labels[free[j]] = src["labels"][kept_ids[j]]
+
+    out = dict(dst)
+    out.update(
+        image=image, masks=masks, valid=valid, labels=labels,
+        boxes=np.where(valid[:, None], _boxes_from_masks(masks), 0.0).astype(np.float32),
+    )
     return out

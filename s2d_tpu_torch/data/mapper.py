@@ -23,8 +23,9 @@ the JAX mapper does, to (T, H, W, 3) uint8; it decodes no target masks
 (the evaluator scores against the record's own RLEs). A host without cv2
 passes its frames to `evaluate_dataset(mapper=...)`.
 
-cv2 or PIL is imported only where a frame is read from an image file, and
-cv2 where `EvalMapper` resizes.
+cv2 or PIL is imported only where a frame is read from an image file (a
+host with neither reads PNG files with `data/png.py`), and cv2 where
+`EvalMapper` resizes.
 """
 from __future__ import annotations
 
@@ -49,19 +50,29 @@ def _cv2():
 
 def load_image_robust(path: str, retries: int = 3, backoff: float = 0.5) -> np.ndarray:
     """Read an RGB image with retry and exponential backoff (network
-    filesystems flake), by cv2 and else by PIL, as the JAX mapper."""
+    filesystems flake), by cv2 and else by PIL, as the JAX mapper. Without
+    either (the card's machine) a PNG is read by the port's own codec
+    (`data/png.py`); any other format raises ImportError."""
     cv2 = _cv2()
     try:
         from PIL import Image
     except ImportError:
         Image = None
-    if cv2 is None and Image is None:
+    own_png = cv2 is None and Image is None and path.lower().endswith(".png")
+    if cv2 is None and Image is None and not own_png:
         raise ImportError(
             f"reading frame {path!r} needs cv2 (opencv-python) or PIL (pillow); "
             "neither is installed. Pass frames to evaluate_dataset(mapper=...) instead"
         )
     last_err: Exception | None = None
     for attempt in range(retries):
+        if own_png:
+            from .png import read_png
+
+            try:
+                return read_png(path)
+            except OSError as err:
+                last_err = err
         if cv2 is not None:
             img = cv2.imread(path, cv2.IMREAD_COLOR)
             if img is not None:

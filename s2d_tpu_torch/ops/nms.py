@@ -3,6 +3,11 @@
 Counterpart of `s2d_tpu/ops/nms.py`. `greedy_mask_nms` launches
 `csrc/nms.cu`, which replaces the TPU kernel `_nms_kernel` (K4), for CUDA
 tensors and takes the plain loop `greedy_mask_nms_plain` for CPU tensors.
+Below WALK_FROM candidates the kernel is one block with its rows in shared
+memory; from WALK_FROM up to MAX_CANDIDATES a grid writes them to a scratch
+matrix (allocated here) and one warp walks them (box NMS: the RPN's 1000
+candidates, the cascade's 256, the TTA merge's up to 1800 at the CutLER
+defaults).
 
 `mask_iou_matrix` stays a matrix product, as in JAX where XLA computes it
 outside any kernel. It must be exact: the keep-set flips at the 0.75
@@ -18,7 +23,12 @@ import torch
 
 from .. import _build
 
-MAX_CANDIDATES = 1024  # the removed set: 32 lanes of one warp x 32 bits
+MAX_CANDIDATES = 4096  # the removed set: 32 lanes of one warp x 4 words x 32 bits
+# candidates from which the scratch path runs (at most 1025: the one-block
+# kernel's removed set is 32 lanes x 32 bits); on an H100 the one-block
+# kernel is the faster at N = 50 and the scratch path from N = 128 on
+# (chip_smoke.py phase 15 times both; PERF.md, K4's row)
+WALK_FROM = 128
 EXACT_F32 = 1 << 24
 
 LAUNCHES = 0  # kernel launches since the last reset
@@ -92,9 +102,14 @@ def greedy_mask_nms(
         raise TypeError(f"labels must be integer on {iou.device}")
     labels = labels.to(torch.int64).contiguous()  # no copy for the postprocess's labels
     keep = torch.empty((n,), dtype=torch.bool, device=iou.device)
-    rc = _build.library().s2d_greedy_nms(
-        iou.data_ptr(), labels.data_ptr(), keep.data_ptr(), n, float(threshold),
-        _build.stream_handle(iou),
+    lib = _build.library()
+    scratch = None
+    if n >= WALK_FROM:
+        words = lib.s2d_greedy_nms_scratch_words(n)
+        scratch = torch.empty((words,), dtype=torch.int32, device=iou.device)
+    rc = lib.s2d_greedy_nms(
+        iou.data_ptr(), labels.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        keep.data_ptr(), n, float(threshold), _build.stream_handle(iou),
     )
     _build.check(rc, "s2d_greedy_nms")
     LAUNCHES += 1

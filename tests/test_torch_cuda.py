@@ -561,14 +561,16 @@ def test_cuda_msda_backward_fixed_point_edges(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 50, 64, 65, 1024])
+@pytest.mark.parametrize("n", [1, 50, 64, 65, 127, 128, 180, 256, 1024, 1025, 1800, 4096])
 def test_cuda_nms_sizes_and_label_ties(cuda, n):
     """K4 at one candidate, the main path's 50, one and two 32-bit words of
-    the removed set past 32, and the most the kernel takes (1024: 32 lanes
-    of 32 bits, 128 KB of suppression rows); IoUs on a grid (ties with the
-    threshold) and with random ones, one label and three, int64 labels as
-    the postprocess hands them over and int32: keep masks exactly the
-    plain loop's."""
+    the removed set past 32, the one-block kernel's last size before
+    WALK_FROM (127) and the scratch path's first (128), the CutLER TTA
+    merge's 180 and cascade's 256 (2 uint4 lanes a row), 1024 and 1025 (32
+    words of the removed set and one more), the TTA merge's 1800 and the
+    most, 4096; IoUs on a grid (ties with the threshold) and with random
+    ones, one label and three, int64 labels as the postprocess hands them
+    over and int32: keep masks exactly the plain loop's."""
     for seed, grid, one_label in ((0, True, False), (1, False, False), (2, True, True)):
         iou, labels = _nms_case(seed, n, grid)
         if one_label:
@@ -581,6 +583,54 @@ def test_cuda_nms_sizes_and_label_ties(cuda, n):
             torch.cuda.synchronize()
             assert nms.LAUNCHES == before + 1
             assert torch.equal(got, nms.greedy_mask_nms_plain(iou_t, lab_t, 0.75)), (n, seed, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 1000, 1024])
+def test_cuda_nms_one_block_kernel_to_its_most(cuda, monkeypatch, n):
+    """The one-block kernel (rows in shared memory, 128 KB at N = 1024) at
+    sizes the wrapper gives the scratch path: the same keep masks."""
+    monkeypatch.setattr(nms, "WALK_FROM", nms.MAX_CANDIDATES + 1)
+    for seed, grid in ((0, True), (1, False)):
+        iou, labels = _nms_case(seed, n, grid)
+        iou_t = torch.from_numpy(iou).to(cuda)
+        lab_t = torch.from_numpy(labels).to(cuda, torch.int64)
+        assert torch.equal(nms.greedy_mask_nms(iou_t, lab_t, 0.75),
+                           nms.greedy_mask_nms_plain(iou_t, lab_t, 0.75)), (n, seed)
+
+
+@pytest.mark.cuda
+def test_cuda_nms_raises_past_its_most(cuda):
+    """Past MAX_CANDIDATES the wrapper raises with the count; no plain loop
+    takes over."""
+    n = nms.MAX_CANDIDATES + 1
+    iou = torch.zeros((n, n), device=cuda)
+    with pytest.raises(ValueError, match=str(n)):
+        nms.greedy_mask_nms(iou, torch.zeros(n, dtype=torch.int64, device=cuda), 0.5)
+
+
+@pytest.mark.cuda
+def test_cuda_box_nms_matches_plain(cuda):
+    """box_nms on the card (K4) against the same steps with the plain loop:
+    seeded boxes with score ties and -inf scores, N = 1000 (the RPN's) and
+    1800 (the TTA merge's)."""
+    from s2d_tpu_torch.ops.boxes import box_nms, pairwise_iou
+
+    rng = np.random.RandomState(0)
+    for n in (1000, 1800):
+        xy = rng.uniform(0, 448, (n, 2))
+        boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(8, 160, (n, 2))], 1)
+                                 .astype(np.float32)).to(cuda)
+        scores = np.round(rng.rand(n) * 16) / 16
+        scores[rng.rand(n) < 0.1] = -np.inf
+        scores = torch.from_numpy(scores.astype(np.float32)).to(cuda)
+        for thresh in (0.5, 0.7):
+            got = box_nms(boxes, scores, thresh)
+            order = torch.argsort(-scores, stable=True)
+            iou = pairwise_iou(boxes[order], boxes[order]).contiguous()
+            keep = torch.zeros_like(got)
+            keep[order] = nms.greedy_mask_nms_plain(iou, torch.zeros_like(order), thresh)
+            assert torch.equal(got, keep), (n, thresh)
 
 
 @pytest.mark.cuda
