@@ -17,7 +17,8 @@
    at each) (K1 and K3 at atol 1e-4 in f32: summation order, the 3xTF32
    products and exp differ), K4 NMS (exactly, at N = 1, 50, 64, 65, 127
    (the one-block kernel's last), 128, 1024, 1025 and 4096 (the scratch
-   path: a grid writes the rows, one warp walks them) with label ties, and
+   path: a grid writes the rows, one warp walks them; past 4096, phase 16)
+   with label ties, and
    the one-block kernel forced at 1024, its most; timed at the main path's N
    = 50 beside the device time of an empty kernel launch, its floor), K2 MSDA backward at the
    train step's shapes (d value at atol 1e-4: K2 sums it in fixed point,
@@ -171,6 +172,25 @@
    paths at N = 50-1000); prints ms a micro-step, a
    train iteration, an eval image and a TTA image, the peak memory and the
    phase's seconds. The parent side of --compare skips this phase.
+16. feeds the CLIs real inputs, JPEG files and polygon annotations, read by
+   the port's own codec and fill (the card's machine has neither cv2 nor
+   PIL), under build/chip_smoke_real (removed at the end; see
+   `real_inputs_path`): (a) the committed JPEG fixtures (tests/data/jpeg)
+   decoded here against the SHA-256 digests of cv2's decodes; (b) the demo
+   CLI over 2 folders of 8 JPEG frames at 720x1280 (`write_jpeg`, 4:2:0,
+   quality 90), full width, seeded weights: kept scores, labels and masks
+   equal to VideoPredictor's on the same frames, its PNGs read back, K1/K3/K4
+   6/9/1 a clip, the host's ms to decode a frame beside read_png's; (c) the
+   video trainer (KD config) on a registered COCO set of 8 JPEG images at
+   480x640 with 3-6 polygons each, as pseudo-clips: 2 steps of B=4 clips of
+   T=3, K1/K2/K5 a step, finite losses, ms a step, peak memory; (d) stage 1
+   on the same set: --max-iter 1 and --eval-only, K4 once a micro-step and
+   twice an eval image, ms a micro-step and an eval image; (e) keymask
+   discovery on one video of 24 JPEG frames at 720x1280, the CLI's seconds
+   and point-frames/s; (f) K4 at N = 4097 and 8192 (past one walk block of
+   4096) against its plain loop on seeded boxes and a sparse IoU, exactly,
+   with its ms and byte bound. The parent side of --compare skips this
+   phase.
 With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
@@ -192,6 +212,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import hashlib
 import io
 import json
@@ -251,6 +272,12 @@ CUTLER_HW = (480, 640)
 CUTLER_ITERS = (2, 3)  # --max-iter of the first run, then of the resumed one
 CUTLER_TTA_IMAGES = 2
 CUTLER_NMS_SIZES = (1025, 1800, 4096)  # K4's large path: seeded boxes
+# phase 16: real inputs (JPEG files, polygon annotations) through the CLIs
+JPEG_FIXTURES = Path("tests") / "data" / "jpeg"
+REAL_VIDEOS, REAL_FRAMES, REAL_QUALITY = 2, 8, 90
+REAL_COCO = "chip_smoke_coco_jpeg"
+REAL_KEYMASK_FRAMES = 24
+REAL_NMS_SIZES = (4097, 8192)  # K4 past one walk block of 4096
 # phase 13: keymask discovery's synthetic set (videos, frames a video,
 # objects a video), the CLI's grid, and a group's least share of an
 # object's frames at mask IoU >= 0.5
@@ -605,7 +632,8 @@ def kernel_checks(dev, record):
     # at each of NMS_SIZES: the keep mask must match exactly. Timed at the
     # main path's N = 50, beside the device time of an empty launch
     rng = np.random.RandomState(SEED)
-    sizes = [n for n in NMS_SIZES if n <= k4.MAX_CANDIDATES]  # a parent's K4 takes 1024
+    # a parent's K4 may take fewer (older checkouts capped it at 1024 or 4096)
+    sizes = [n for n in NMS_SIZES if n <= getattr(k4, "MAX_CANDIDATES", n)]
     for n in sizes:
         for trial in range(8):
             iou = rng.rand(n, n).astype(np.float32)
@@ -623,7 +651,7 @@ def kernel_checks(dev, record):
         if n == 50:
             main_nms = (iou_t, lab_t, got)
     if hasattr(k4, "WALK_FROM"):  # the one-block kernel at its most, which the wrapper
-        walk_from, k4.WALK_FROM = k4.WALK_FROM, k4.MAX_CANDIDATES + 1  # gives the scratch path
+        walk_from, k4.WALK_FROM = k4.WALK_FROM, 1025  # gives the scratch path
         try:
             iou_t, lab_t = iou_t[:1024, :1024].contiguous(), lab_t[:1024]
             if not torch.equal(k4.greedy_mask_nms(iou_t, lab_t, 0.75),
@@ -1293,7 +1321,7 @@ def write_eval_set(root: Path, rng, lengths=EVAL_LENGTHS, name=EVAL_DATASET,
     """A YTVIS set of videos of `lengths` frames recorded at OUT_SIZE, each
     with 3 drifting ellipses as ground truth (per-frame RLE by the port's
     codec), registered as `name`. Returns the 360x640 uint8 frames per video
-    id (no image file is written: the card has no cv2) and prints the host
+    id (no image file is written: the eval takes them through mapper=) and prints the host
     time of one ground-truth (ellipse) mask's RLE encoding."""
     from s2d_tpu_torch.data import rle, ytvis
 
@@ -2666,6 +2694,442 @@ def cutler_path(dev, record, image_size=512, hw=CUTLER_HW, images=CUTLER_IMAGES,
     return sum(launches.values())
 
 
+def real_frames(rng, t, hw):
+    """t frames (T, H, W, 3) uint8 that a JPEG codes at a realistic size: a
+    colour gradient, a few flat ellipses that drift, mild noise."""
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    base = np.stack([xx * 200 / w + 20, yy * 180 / h + 40, (xx + yy) * 120 / (h + w) + 60], -1)
+    blobs = [(rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w, rng.uniform(0.05, 0.2) * h,
+              rng.uniform(0.05, 0.2) * w, rng.uniform(-6, 6, 2), rng.randint(0, 256, 3))
+             for _ in range(4)]
+    frames = np.empty((t, h, w, 3), np.uint8)
+    for i in range(t):
+        img = base.copy()
+        for cy, cx, ry, rx, (vy, vx), color in blobs:
+            img[((yy - cy - vy * i) / ry) ** 2 + ((xx - cx - vx * i) / rx) ** 2 < 1] = color
+        frames[i] = np.clip(img + rng.normal(0, 4, img.shape), 0, 255)
+    return frames
+
+
+def write_jpeg_coco_set(root: Path, name: str, rng, n=CUTLER_IMAGES, hw=CUTLER_HW) -> None:
+    """A COCO-format set of `n` JPEG images at `hw` (`write_jpeg`, 4:2:0,
+    quality REAL_QUALITY) with 3-6 flat-coloured star polygons each,
+    annotated as COCO polygons (the segmentation COCO's own annotations
+    use) with their boxes, registered class-agnostic as `name`."""
+    from s2d_tpu_torch.data import coco
+    from s2d_tpu_torch.data.jpeg import write_jpeg
+    from s2d_tpu_torch.data.rle import polygons_to_mask
+
+    h, w = hw
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n):
+        img = real_frames(rng, 1, hw)[0]
+        for _ in range(rng.randint(3, 7)):
+            k = rng.randint(8, 17)
+            angles = np.sort(rng.uniform(0, 2 * np.pi, k))
+            radius = rng.uniform(0.3, 1.0, k) * rng.uniform(0.08, 0.25) * h
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            poly = np.stack([cx + radius * np.cos(angles), cy + radius * np.sin(angles)], 1)
+            poly = np.round(poly, 1).reshape(-1).tolist()
+            m = polygons_to_mask([poly], h, w)
+            img[m] = rng.randint(110, 256, 3)
+            xs, ys = poly[0::2], poly[1::2]
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": i + 1, "category_id": 1, "iscrowd": 0,
+                "bbox": [min(xs), min(ys), max(xs) - min(xs), max(ys) - min(ys)],
+                "area": float(m.sum()), "segmentation": [poly]})
+        write_jpeg(str(root / "images" / f"{i:03d}.jpg"), img, REAL_QUALITY)
+        images.append({"id": i + 1, "file_name": f"{i:03d}.jpg", "height": h, "width": w})
+    path = root / "instances.json"
+    path.write_text(json.dumps({"images": images, "annotations": annotations,
+                                "categories": [{"id": 1, "name": "fg"}]}))
+    coco.register_coco(name, str(path), str(root / "images"), class_agnostic=True)
+    print(f"COCO set {name}: {n} JPEG images at {h}x{w}, {len(annotations)} polygon instances")
+
+
+def jpeg_fixture_check() -> None:
+    """16(a): the committed JPEG fixtures decoded on this host by the port's
+    codec, each against the SHA-256 of cv2's decode of it (written where the
+    fixtures were made); the refused kinds must raise."""
+    from s2d_tpu_torch.data.jpeg import read_jpeg
+
+    digests = json.loads((JPEG_FIXTURES / "digests.json").read_text())
+    matched, refused = 0, 0
+    for name, want in sorted(digests.items()):
+        path = str(JPEG_FIXTURES / name)
+        if "refused" in want:
+            try:
+                read_jpeg(path)
+            except ValueError:
+                refused += 1
+                continue
+            raise AssertionError(f"JPEG fixture {name}: decoded, but must be refused")
+        got = read_jpeg(path)
+        if list(got.shape) != want["shape"] or hashlib.sha256(got.tobytes()).hexdigest() != want["sha256"]:
+            raise AssertionError(f"JPEG fixture {name}: the decode differs from cv2's digest")
+        matched += 1
+    print(f"JPEG fixtures: {matched} decoded to cv2's SHA-256 digests, {refused} refused as "
+          f"they must be ({JPEG_FIXTURES})")
+
+
+def demo_jpeg_path(dev, root: Path, hw=OUT_SIZE, frames=REAL_FRAMES, opts=()) -> dict:
+    """16(b): the demo CLI, `python -m s2d_tpu_torch.demo_video` (`main`), over
+    REAL_VIDEOS folders of `frames` JPEG frames (`write_jpeg`, 4:2:0, quality
+    REAL_QUALITY) with the inference config on seeded weights, --save-masks.
+    Its predictions (kept scores, labels, masks) must equal VideoPredictor's
+    on the same frames read by `read_jpeg` and resized by `resize_linear`,
+    and its PNGs read back by `read_png`. Prints the host's ms to decode a
+    frame beside `read_png`'s for the same frame as PNG, the CLI's wall and
+    frames/s, and its K1/K3/K4 launches. Returns them."""
+    from s2d_tpu_torch import demo_video
+    from s2d_tpu_torch.config import load_config
+    from s2d_tpu_torch.data.augment import resize_shortest_edge
+    from s2d_tpu_torch.data.jpeg import read_jpeg, write_jpeg
+    from s2d_tpu_torch.data.png import read_png, write_png
+    from s2d_tpu_torch.data.transforms import resize_linear
+    from s2d_tpu_torch.ops import masked_attention_cuda, ms_deform_attn_cuda, nms
+
+    rng = np.random.RandomState(SEED + 16)
+    names = [f"video{v}" for v in range(REAL_VIDEOS)]
+    for name in names:
+        (root / "demo_in" / name).mkdir(parents=True)
+        for i, frame in enumerate(real_frames(rng, frames, hw)):
+            write_jpeg(str(root / "demo_in" / name / f"{i:05d}.jpg"), frame, REAL_QUALITY)
+    one = str(root / "demo_in" / "video0" / "00000.jpg")
+    write_png(str(root / "frame.png"), read_jpeg(one))
+    jpeg_ms = 1e3 * min(timeit(lambda: read_jpeg(one)) for _ in range(5))
+    png_ms = 1e3 * min(timeit(lambda: read_png(str(root / "frame.png"))) for _ in range(5))
+
+    cfg = load_config(EVAL_CONFIG, opts)
+    predictor = demo_video.VideoPredictor(cfg, seed=0, device=dev)
+    want = {}
+    for name in names:
+        raw = [read_jpeg(f) for f in sorted(glob.glob(str(root / "demo_in" / name / "*.jpg")))]
+        nh, nw = resize_shortest_edge(*hw, cfg.min_size_test, cfg.max_size_test)
+        want[name] = predictor(np.stack([resize_linear(f, (nh, nw)) for f in raw]), output_size=hw)
+    del predictor
+
+    got, own_write = {}, demo_video._write_outputs
+
+    def write_outputs(out_dir, raw, preds, threshold, save_masks):
+        got[os.path.basename(out_dir)] = preds
+        return own_write(out_dir, raw, preds, threshold, save_masks)
+
+    counters = {"k1_msda": (ms_deform_attn_cuda, "LAUNCHES"),
+                "k3_flash": (masked_attention_cuda, "LAUNCHES"), "k4_nms": (nms, "LAUNCHES")}
+    out = root / "demo_out"
+    argv = ["--input", str(root / "demo_in" / "video*"), "--output", str(out), "--config-file",
+            EVAL_CONFIG, "--device", dev.type, "--confidence-threshold", "0.0", "--save-masks",
+            *opts]
+    demo_video._write_outputs = write_outputs
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    try:
+        t0 = time.perf_counter()
+        rc = demo_video.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        demo_video._write_outputs = own_write
+    launches = read_counts(counters)
+    if rc != 0:
+        raise AssertionError(f"demo CLI: exit {rc}")
+    expected = {k: REAL_VIDEOS * PER_CLIP[k] for k in counters}
+    if dev.type == "cuda" and launches != expected:
+        raise AssertionError(f"demo CLI: launches {launches}, expected {expected}")
+    kept = []
+    for name, ref in want.items():
+        mine = got[name]
+        for key in ("scores", "labels", "masks"):
+            if not np.array_equal(mine[key], ref[key]):
+                raise AssertionError(f"demo CLI {name}: {key} differ from VideoPredictor's")
+        kept.append(len(mine["scores"]))
+        for i in range(frames):
+            for kind in ("frame", "mask"):
+                png = read_png(str(out / name / f"{kind}_{i:05d}.png"))
+                if png.shape != (*hw, 3):
+                    raise AssertionError(f"demo CLI {name}: {kind} {i} is {png.shape}")
+        # the first overlay, recomputed from the decoded frame and the predictions
+        overlay = read_jpeg(str(root / "demo_in" / name / "00000.jpg")).astype(np.float32)
+        for ni, m in enumerate(mine["masks"][:, 0]):
+            overlay[m] = 0.5 * overlay[m] + 0.5 * np.asarray(
+                demo_video.PALETTE[ni % len(demo_video.PALETTE)], np.float32)
+        if not np.array_equal(read_png(str(out / name / "frame_00000.png")), overlay.astype(np.uint8)):
+            raise AssertionError(f"demo CLI {name}: the first overlay PNG differs from its pixels")
+    n_frames = REAL_VIDEOS * frames
+    print(f"demo CLI on JPEG: {REAL_VIDEOS} videos of {frames} frames at {hw[0]}x{hw[1]} "
+          f"(4:2:0, quality {REAL_QUALITY}), {wall:.2f} s wall, {n_frames / wall:.2f} frames/s "
+          f"(reads, resizes, clips, PNG writes; the predictor's build included); kept "
+          f"{kept} predictions, scores, labels and masks equal to VideoPredictor's on the same "
+          f"read_jpeg frames; {2 * n_frames} PNGs read back; launches {launches} (K1/K3/K4 "
+          f"{PER_CLIP['k1_msda']}/{PER_CLIP['k3_flash']}/{PER_CLIP['k4_nms']} a clip)")
+    print(f"  host decode of one {hw[0]}x{hw[1]} frame: read_jpeg {jpeg_ms:.2f} ms, read_png "
+          f"{png_ms:.2f} ms (the same pixels as PNG; best of 5)")
+    return launches
+
+
+def timeit(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def once_ms(fn) -> float:
+    """Device time of one call by CUDA events: for a call that takes long
+    enough (a plain loop of thousands of steps) that `cuda_ms`'s warm-up
+    and repeats would cost seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def pseudo_clip_train_path(dev, root: Path, name: str, opts=()) -> dict:
+    """16(c): the video trainer, `train_net_video.main`, on the JPEG COCO set
+    `name` as pseudo-clips (DATASETS.TRAIN; the loader reads the JPEGs and
+    fills the polygons on its threads) with the KD config: MAX_ITER 2, B=4
+    clips of T=3, no eval. Checks each step's K1/K2/K5 launches
+    (`expected_launches`) and finite losses; prints ms a step (metrics.json
+    `time`), the losses and the peak memory. Returns the launches."""
+    from s2d_tpu_torch import train_net_video
+    from s2d_tpu_torch.config import load_config_tree
+    from s2d_tpu_torch.train import trainer
+
+    out = root / "train_out"
+    args = ["--device", dev.type, "--config-file", KD_CONFIG, *opts,
+            "DATASETS.TRAIN", f'("{name}",)', "SOLVER.MAX_ITER", "2", "SOLVER.IMS_PER_BATCH", "4",
+            "INPUT.SAMPLING_FRAME_NUM", "3", "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", str(out)]
+    cfg = load_config_tree(KD_CONFIG, [*opts, "SOLVER.IMS_PER_BATCH", "4"])
+    counters, steps, own_make = train_counters(), [], trainer.make_train_step
+
+    def make_train_step(cfg_, kernels=True):
+        step_fn = own_make(cfg_, kernels)
+
+        def step(state, *a, **kw):
+            before = read_counts(counters)
+            result = step_fn(state, *a, **kw)
+            steps.append(({k: v - before[k] for k, v in read_counts(counters).items()},
+                          tuple(a[0].shape)))
+            return result
+        return step
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    trainer.make_train_step = make_train_step
+    try:
+        t0 = time.perf_counter()
+        rc = train_net_video.main(args)
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.make_train_step = own_make
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if rc != 0 or len(steps) != 2:
+        raise AssertionError(f"pseudo-clip trainer: exit {rc}, {len(steps)} steps")
+    expected = expected_launches(cfg)
+    for i, (grew, shape) in enumerate(steps):
+        if dev.type == "cuda" and {k: grew[k] for k in expected} != expected:
+            raise AssertionError(f"pseudo-clip trainer step {i}: launches {grew}, expected {expected}")
+        if shape[:2] != (4, 3):
+            raise AssertionError(f"pseudo-clip trainer step {i}: batch {shape}, expected B=4, T=3")
+    lines = [json.loads(x) for x in (out / "metrics.json").read_text().splitlines()]
+    losses = {k: v for k, v in lines[-1].items() if "loss" in k}
+    if len(lines) != 2 or not all(np.isfinite(x[k]) for x in lines for k in x if "loss" in k):
+        raise AssertionError(f"pseudo-clip trainer: metrics.json {lines}")
+    print(f"pseudo-clip trainer: 2 steps of B=4 pseudo-clips of T=3 from {name} "
+          f"(canvases {sorted({s[1][2:4] for s in steps})}), "
+          + ", ".join(f"{x['time'] * 1e3:.1f}" for x in lines)
+          + f" ms a step (metrics.json time; data_time "
+          + ", ".join(f"{x['data_time']:.3f}" for x in lines)
+          + f" s), peak device memory {peak / 2**30:.2f} GiB, {wall:.1f} s wall; "
+          f"launches {launches} ({steps[0][0]} a step); last losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())[:6]))
+    return launches
+
+
+def stage1_jpeg_path(dev, root: Path, name: str, image_size=512, opts=()) -> int:
+    """16(d): stage 1, `train_net.main`, on the JPEG COCO set with polygon
+    annotations: --max-iter 1 (IMS_PER_BATCH micro-steps), then --eval-only
+    over the set (its ground truth filled from the polygons). Checks one K4
+    launch a micro-step and two an eval image and the AP keys; prints ms a
+    micro-step (each synchronized) and an eval image. Returns the K4
+    launches."""
+    from s2d_tpu_torch import train_net
+    from s2d_tpu_torch.ops import nms
+    from s2d_tpu_torch.train import cutler_trainer
+
+    base = ["--config-file", CUTLER_CONFIG, "--train-dataset", name, "--test-dataset", name,
+            "--output-dir", str(root / "stage1_out"), "--image-size", str(image_size),
+            "--device", dev.type, *opts]
+    micro, evals = [], []
+    own_make, own_cascade = cutler_trainer.make_cutler_train_step, cutler_trainer.cascade_detections
+
+    def make_step(model, cfg_, optimizer):
+        step_fn = own_make(model, cfg_, optimizer)
+
+        def step(*a):
+            t0 = time.perf_counter()
+            metrics = step_fn(*a)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            micro.append(time.perf_counter() - t0)
+            return metrics
+        return step
+
+    def cascade(*a, **kw):
+        result = own_cascade(*a, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        evals.append(time.perf_counter())
+        return result
+
+    launches, printed = {}, {}
+    cutler_trainer.make_cutler_train_step, cutler_trainer.cascade_detections = make_step, cascade
+    try:
+        for key, argv in (("train", base + ["--max-iter", "1", "--max-images", "1"]),
+                          ("eval", base + ["--eval-only"])):
+            nms.LAUNCHES = 0
+            n_evals = len(evals)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_net.main(argv)
+            printed[key] = buf.getvalue()
+            launches[key] = nms.LAUNCHES
+            if rc != 0:
+                raise AssertionError(f"stage 1 on JPEG {key}: exit {rc}")
+            if key == "eval":
+                images = len(evals) - n_evals
+    finally:
+        cutler_trainer.make_cutler_train_step, cutler_trainer.cascade_detections = own_make, own_cascade
+    want = {"train": len(micro) + 2, "eval": 2 * images}  # --max-images 1: one eval image after
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"stage 1 on JPEG: K4 launches {launches}, expected {want}")
+    if not all(k in printed["eval"] for k in ("bbox/AP:", "segm/AP:")):
+        raise AssertionError(f"stage 1 on JPEG: no AP keys in {printed['eval'][-2000:]}")
+    eval_ms = 1e3 * np.diff(evals[-images:])
+    print(f"stage 1 on JPEG + polygons: {len(micro)} micro-steps at {image_size}x{image_size}, "
+          f"{1e3 * np.median(micro[1:]):.1f} ms a micro-step (median after the first, each "
+          f"synchronized; {1e3 * min(micro[1:]):.1f}-{1e3 * max(micro[1:]):.1f}), "
+          f"{np.median(eval_ms):.1f} ms an eval image (median of {len(eval_ms)} intervals of "
+          f"the --eval-only run over {images} images); K4 launches {launches} (1 a micro-step, 2 "
+          f"an eval image)")
+    print(f"  {printed['eval'].strip().splitlines()[-1][:160]}")
+    return sum(launches.values())
+
+
+def keymask_jpeg_path(dev, root: Path, hw=OUT_SIZE, length=REAL_KEYMASK_FRAMES) -> None:
+    """16(e): keymask discovery, `keymask_ident.main`, on one video of
+    `length` JPEG frames (`keymask_scene`, `write_jpeg` 4:2:0 quality
+    REAL_QUALITY) with colour-PNG stage-1 masks. Prints the CLI's seconds
+    and its tracker's point-frames/s."""
+    from s2d_tpu_torch import keymask_ident
+    from s2d_tpu_torch.data.jpeg import write_jpeg
+    from s2d_tpu_torch.data.png import write_png
+
+    rng = np.random.RandomState(SEED + 17)
+    frames, pngs, _, _ = keymask_scene(rng, hw, length)
+    for sub in ("km_frames", "km_masks"):
+        (root / sub / "video0").mkdir(parents=True)
+    for fi in range(length):
+        write_jpeg(str(root / "km_frames" / "video0" / f"{fi:05d}.jpg"), frames[fi], REAL_QUALITY)
+        write_png(str(root / "km_masks" / "video0" / f"{fi:05d}.png"), pngs[fi])
+    argv = ["--frames-root", str(root / "km_frames"), "--masks-root", str(root / "km_masks"),
+            "--output-root", str(root / "km_out"), "--grid-size", str(KEYMASK_GRID),
+            *(["--device", "cpu"] if dev.type == "cpu" else [])]
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = keymask_ident.main(argv)
+    cli_s = time.perf_counter() - t0
+    text = log.getvalue()
+    summary = re.search(r"keymask_ident: (\d+) ok, (\d+) failed", text)
+    tracked = re.search(r"^tracker: (\d+) point-frames in ([\d.]+) s, (\d+) point-frames/s", text,
+                        re.M)
+    if rc != 0 or summary is None or summary.groups() != ("1", "0") or tracked is None:
+        raise AssertionError(f"keymask CLI on JPEG: exit {rc}; {text[-1500:]}")
+    groups = len(json.loads((root / "km_out" / "annotations" / "video0.json").read_text())
+                 ["annotations"])
+    print(f"keymask CLI on JPEG: 1 video of {length} frames at {hw[0]}x{hw[1]}, {cli_s:.2f} s "
+          f"(reads included), {groups} groups; tracker {tracked.group(1)} point-frames in "
+          f"{tracked.group(2)} s, {tracked.group(3)} point-frames/s")
+
+
+def k4_past_one_block(dev, record, sizes=REAL_NMS_SIZES) -> None:
+    """16(f): K4 past 4096 candidates (one walk block) against its plain loop, keep sets
+    exactly: seeded boxes with score ties (`box_nms_inputs`) and a sparse
+    IoU (kept candidates in every block of 4096) with two labels; the device
+    ms of the box case beside its plain loop's and its byte bound."""
+    from s2d_tpu_torch.ops import nms
+
+    rng = np.random.RandomState(SEED + 18)
+    times = {}
+    for n in sizes:
+        box_iou, box_labels = box_nms_inputs(dev, n, rng)
+        dense = rng.rand(n, n).astype(np.float32) * 0.7
+        for value, pairs in ((0.8, 3 * n), (0.75, n)):
+            dense[rng.randint(0, n, pairs), rng.randint(0, n, pairs)] = value
+        dense = np.maximum(dense, dense.T)
+        np.fill_diagonal(dense, 1.0)
+        sparse_iou = torch.from_numpy(dense).to(dev)
+        sparse_labels = torch.from_numpy(rng.randint(0, 2, n)).to(dev)
+        kept, plain_ms = {}, {}
+        for case, iou, labels, thresh in (("boxes", box_iou, box_labels, 0.7),
+                                          ("sparse", sparse_iou, sparse_labels, 0.75)):
+            got, ref = nms.greedy_mask_nms(iou, labels, thresh), []
+            plain_ms[case] = once_ms(lambda: ref.append(
+                nms.greedy_mask_nms_plain(iou, labels, thresh)))
+            if not torch.equal(got, ref[0]):
+                raise AssertionError(f"K4 at N={n} ({case}) differs from its plain loop")
+            kept[case] = int(got.sum())
+        times[str(n)] = dict(
+            ms=cuda_ms(lambda: nms.greedy_mask_nms(box_iou, box_labels, 0.7)),
+            plain_ms=plain_ms["boxes"], kept=kept,
+            **bound(nbytes(box_iou, box_labels) + n, n * (n - 1) / 2))
+    record["k4_nms"]["past_one_block"] = times
+    print("K4 past 4096 candidates: keep sets identical to the plain loop's (box and sparse "
+          "IoUs); device ms " + "; ".join(
+              f"N={n} {t['ms']:.4f} (plain {t['plain_ms']:.1f}, bound {t['bound_ms']:.4f} by "
+              f"{t['bound_by']}, kept {t['kept']})" for n, t in times.items()))
+
+
+def real_inputs_path(dev, record, demo_hw=OUT_SIZE, demo_frames=REAL_FRAMES,
+                     coco_hw=CUTLER_HW, coco_images=CUTLER_IMAGES, keymask_hw=OUT_SIZE,
+                     keymask_frames=REAL_KEYMASK_FRAMES, stage1_size=512, nms_sizes=REAL_NMS_SIZES,
+                     demo_opts=(), train_opts=(), stage1_opts=()) -> dict:
+    """Phase 16: real inputs (JPEG files, polygon annotations) through the
+    CLIs, under build/chip_smoke_real (removed at the end): (a)
+    `jpeg_fixture_check`, (b) `demo_jpeg_path`, (c) `pseudo_clip_train_path`
+    and (d) `stage1_jpeg_path` on one JPEG COCO set with polygons
+    (`write_jpeg_coco_set`), (e) `keymask_jpeg_path`, (f) `k4_past_one_block`.
+    A rehearsal off the card passes a CPU `dev` and smaller sizes and opts.
+    Returns the launches of each kernel on the phase's paths."""
+    started = time.perf_counter()
+    root = Path("build") / "chip_smoke_real"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        jpeg_fixture_check()
+        demo = demo_jpeg_path(dev, root, demo_hw, demo_frames, demo_opts)
+        write_jpeg_coco_set(root / "coco", REAL_COCO, np.random.RandomState(SEED + 19),
+                            coco_images, coco_hw)
+        train = pseudo_clip_train_path(dev, root, REAL_COCO, train_opts)
+        stage1 = stage1_jpeg_path(dev, root, REAL_COCO, stage1_size, stage1_opts)
+        keymask_jpeg_path(dev, root, keymask_hw, keymask_frames)
+        k4_past_one_block(dev, record, nms_sizes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"real-inputs phase: {time.perf_counter() - started:.1f} s")
+    return {"k1_msda": demo["k1_msda"] + train["k1_msda"], "k3_flash": demo["k3_flash"],
+            "k4_nms": demo["k4_nms"] + stage1, "k2_msda_bwd": train["k2_msda_bwd"],
+            "k5_auction": train["k5_auction"]}
+
+
 COMPARE_ORDER = ("parent", "change", "change", "parent")
 # the lines of a run's log that the comparison prints under the run's header
 COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per span",
@@ -2853,19 +3317,25 @@ def main(argv=None) -> int:
     # 15. stage 1: the CutLER detector's CLI (train, resume, eval, TTA), K4's box NMS
     cutler = cutler_path(dev, record) if not PARENT else 0
 
+    # 16. real inputs: JPEG files and polygon annotations through the CLIs, K4 past 4096
+    real = real_inputs_path(dev, record) if not PARENT else {}
+
     on_options = lambda key: {"kd_options": options[key]} if options else {}  # noqa: E731
+    on_real = lambda key: {"real_inputs": real[key]} if real else {}  # noqa: E731
     by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
                            "eval": eval_launches["k1_msda"], "train_cli": cli_launches["k1_msda"],
-                           **on_options("k1_msda")},
+                           **on_options("k1_msda"), **on_real("k1_msda")},
                "k3_flash": {"inference": launches["k3_flash"], "eval": eval_launches["k3_flash"],
-                            "train_cli": cli_launches["k3_flash"]},
+                            "train_cli": cli_launches["k3_flash"], **on_real("k3_flash")},
                "k4_nms": {"inference": launches["k4_nms"], "eval": eval_launches["k4_nms"],
                           "train_cli": cli_launches["k4_nms"], **on_options("k4_nms"),
-                          **({"cutler": cutler} if not PARENT else {})},
+                          **({"cutler": cutler} if not PARENT else {}), **on_real("k4_nms")},
                "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"],
-                               "train_cli": cli_launches["k2_msda_bwd"], **on_options("k2_msda_bwd")},
+                               "train_cli": cli_launches["k2_msda_bwd"], **on_options("k2_msda_bwd"),
+                               **on_real("k2_msda_bwd")},
                "k5_auction": {"train": train_launches["k5_auction"],
-                              "train_cli": cli_launches["k5_auction"], **on_options("k5_auction")},
+                              "train_cli": cli_launches["k5_auction"], **on_options("k5_auction"),
+                              **on_real("k5_auction")},
                **{f"k6_{v}": {"ablation": n} for v, n in ablate_launches.items()}}
     for key, paths in by_path.items():
         if not all(paths.values()):

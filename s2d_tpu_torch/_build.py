@@ -48,7 +48,7 @@ SIGNATURES = {
     "s2d_masked_attention_fwd": (
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _F, _I, _P,
     ),
-    # iou, labels (int64), scratch (N > 1024), keep, N, threshold, stream
+    # iou, labels (int64), scratch (N >= ops/nms.WALK_FROM), keep, N, threshold, stream
     "s2d_greedy_nms": (_P, _P, _P, _P, _I, _F, _P),
     # N: the scratch words s2d_greedy_nms needs
     "s2d_greedy_nms_scratch_words": (_I,),

@@ -110,7 +110,7 @@ def _resnet(take: _Taker) -> Iterator[Tuple[str, np.ndarray]]:
     if "backbone.patch_embed.proj.weight" in state:
         raise NotImplementedError(
             "a Swin backbone checkpoint: the port has no Swin backbone yet (ROADMAP queue 1, "
-            "item 8)")
+            "item 2(a))")
     if "backbone.res2.0.conv3.weight" not in state:
         raise ValueError("only bottleneck ResNets (50/101/152) are supported: the checkpoint "
                          "has no res2.0.conv3 (R18/34 basic blocks)")

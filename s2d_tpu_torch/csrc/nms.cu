@@ -25,7 +25,7 @@
 // wrapper converts nothing.
 //
 // Past 1024 candidates (box NMS: the TTA merge pools up to 1800 at the
-// CutLER defaults; up to kLargeMaxN = 4096) the rows no longer fit in shared
+// CutLER defaults) the rows no longer fit in shared
 // memory (4096 x 128 words = 2 MB) and the removed set no longer fits one
 // word a lane; and from about a hundred candidates on, the one block's
 // first phase (one SM reading the whole IoU, its loads in flight a few at a
@@ -47,13 +47,26 @@
 //      kept" from cur alone and folds that word into cur, and its own 4 words
 //      of row i into its part of the set. The owner's word stays equal to
 //      cur.
+//
+// Past 4096 candidates (box NMS at a PRE_NMS_TOPK_TEST, --num-proposals or
+// TTA merge that large; JAX's box_nms takes any N) the removed set no longer
+// fits the warp's registers. The walk goes in blocks of kBlock = 4096
+// candidates in score order, each walked as above with the removed set of
+// its own 128 words. Before block b is walked, C. walk_seed_kernel, a grid,
+// seeds its removed set from A's rows of every kept candidate of the blocks
+// before it: candidate j of block b starts removed when a kept candidate i <
+// 4096 b has its label and IoU(i, j) > threshold, which is exactly what the
+// greedy loop has removed by the time it reaches block b. The order stays
+// exact; the cost is one grid pass and one walk launch a block. N <= 4096
+// takes the walk's unblocked instantiation, whose code (and time) is the
+// walk's before blocks.
+#include <climits>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxN = 1024;  // 32 lanes x 32 bits
-constexpr int kLargeMaxN = 4096;  // 32 lanes x 4 words x 32 bits
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 4;  // (row, word) pairs a warp loads before it ballots
@@ -61,6 +74,9 @@ constexpr int kMaxDevices = 64;
 constexpr int kBitsThreads = 256;  // suppression_bits_kernel's block
 constexpr int kBitsMaxBlocks = 1024;
 constexpr int kChunk = 32;  // rows the walk stages at a time: one word of candidates
+constexpr int kBlock = 4096;  // candidates one walk launch takes: 32 lanes x 4 words x 32 bits
+constexpr int kBlockWords = kBlock / 32;
+constexpr int kSeedRows = 32;  // rows of earlier blocks a walk_seed_kernel block reads
 
 __global__ void __launch_bounds__(kThreads)
 greedy_nms_kernel(const float* __restrict__ iou,       // (N, N)
@@ -148,31 +164,41 @@ __device__ __forceinline__ unsigned component(const uint4& v, int k) {
 }
 
 // B: the greedy walk over A's rows, one warp (see the head of the file).
+// kBlocked (N > kBlock): candidates r0 .. r0 + min(N - r0, kBlock) - 1 (r0 a
+// multiple of kBlock), lane L holding words 4L .. 4L+3 of the block's own
+// words and starting from `seed` (the block's removed set, kBlockWords
+// words) where there is one; else all N from an empty set, the code of the
+// walk before blocks (r0 = 0 at compile time), so N <= kBlock keeps its time.
+template <bool kBlocked>
 __global__ void __launch_bounds__(32)
-greedy_walk_kernel(const unsigned* __restrict__ bits, int wp, unsigned char* __restrict__ keep_out,
-                   int n) {
+greedy_walk_kernel(const unsigned* __restrict__ bits, int wp, const unsigned* __restrict__ seed,
+                   unsigned char* __restrict__ keep_out, int block_r0, int n) {
   __shared__ __align__(16) uint4 stage[2][kChunk][32];  // rows of two chunks, 32 KB
   const int lane = threadIdx.x;
   const int wp4 = wp / 4;
-  const bool mine = lane < wp4;
+  const int r0 = kBlocked ? block_r0 : 0;
+  const int u0 = r0 / 128;  // the block's first uint4 of a row
+  const int rows_n = kBlocked ? min(n - r0, kBlock) : n;
+  const bool mine = u0 + lane < wp4;
   const unsigned lane_mask = mine ? 0xffffffffu : 0u;  // lanes past the row's words hold nothing
   const uint4* rows = reinterpret_cast<const uint4*>(bits);
-  const int chunks = (n + kChunk - 1) / kChunk;
+  const int chunks = (rows_n + kChunk - 1) / kChunk;
   // chunk c's rows, this lane's uint4 of each, copied to stage[c & 1]
   // asynchronously (cp.async: no register holds them on the way)
   auto fetch = [&](int c) {
     if (mine) {
-      const int r0 = c * kChunk;
-      const int rn = min(kChunk, n - r0);
+      const int rc = c * kChunk;
+      const int rn = min(kChunk, rows_n - rc);
       for (int r = 0; r < rn; ++r)
-        __pipeline_memcpy_async(&stage[c & 1][r][lane], rows + (long long)(r0 + r) * wp4 + lane,
-                                sizeof(uint4));
+        __pipeline_memcpy_async(&stage[c & 1][r][lane],
+                                rows + (long long)(r0 + rc + r) * wp4 + u0 + lane, sizeof(uint4));
     }
     __pipeline_commit();
   };
   fetch(0);
   uint4 removed = make_uint4(0u, 0u, 0u, 0u);
-  for (int c = 0; c < chunks; ++c) {  // chunk c: candidates of word c
+  if (kBlocked && seed != nullptr && mine) removed = reinterpret_cast<const uint4*>(seed)[lane];
+  for (int c = 0; c < chunks; ++c) {  // chunk c: candidates of the block's word c
     if (c + 1 < chunks) {
       fetch(c + 1);
     } else {
@@ -182,14 +208,14 @@ greedy_walk_kernel(const unsigned* __restrict__ bits, int wp, unsigned char* __r
     __syncwarp();  // every lane's copies of chunk c have landed
     unsigned cur = __shfl_sync(0xffffffffu, component(removed, c & 3), c >> 2);
     const uint4(*chunk)[32] = stage[c & 1];
-    const int rn = min(kChunk, n - c * kChunk);
+    const int rn = min(kChunk, rows_n - c * kChunk);
     // branch-free, so that the shared loads issue ahead of the chain: the
     // step's dependent work is cur's bit test and one OR into cur
 #pragma unroll 8
     for (int r = 0; r < rn; ++r) {
       const uint4 row = chunk[r][lane];
       const unsigned diag = reinterpret_cast<const unsigned*>(chunk[r])[c];
-      const unsigned kept = ((cur >> r) & 1u) - 1u;  // all ones when 32 c + r is kept
+      const unsigned kept = ((cur >> r) & 1u) - 1u;  // all ones when the candidate is kept
       cur |= diag & kept;
       const unsigned m = kept & lane_mask;
       removed.x |= row.x & m;
@@ -199,39 +225,88 @@ greedy_walk_kernel(const unsigned* __restrict__ bits, int wp, unsigned char* __r
     }
     __syncwarp();  // read by every lane before fetch(c + 2) refills the stage
   }
-  for (int j0 = 0; j0 < n; j0 += 32) {  // warp-uniform: every lane reaches the shuffle
+  for (int j0 = 0; j0 < rows_n; j0 += 32) {  // warp-uniform: every lane reaches the shuffle
     const int q = j0 >> 5;
     const unsigned word = __shfl_sync(0xffffffffu, component(removed, q & 3), q >> 2);
-    if (j0 + lane < n) keep_out[j0 + lane] = (unsigned char)!((word >> lane) & 1u);
+    if (j0 + lane < rows_n) keep_out[r0 + j0 + lane] = (unsigned char)!((word >> lane) & 1u);
   }
+}
+
+// C: the removed set block r0 / kBlock starts from, into seed (kBlockWords
+// words, zeroed before): the OR of A's rows of the kept candidates before r0,
+// over the block's words. Thread t takes word t, a grid block kSeedRows rows.
+__global__ void __launch_bounds__(kBlockWords)
+walk_seed_kernel(const unsigned* __restrict__ bits, int wp, const unsigned char* __restrict__ keep,
+                 unsigned* __restrict__ seed, int r0) {
+  const int w = r0 / 32 + threadIdx.x;
+  if (w >= wp) return;
+  const int i0 = blockIdx.x * kSeedRows;
+  const int i1 = min(i0 + kSeedRows, r0);
+  unsigned acc = 0;
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
+    const unsigned v = __ldg(bits + (long long)i * wp + w);
+    acc |= keep[i] ? v : 0u;
+  }
+  if (acc) atomicOr(seed + threadIdx.x, acc);
 }
 
 __global__ void empty_kernel() {}
 
 }  // namespace
 
-// Words a row of the scratch matrix of N > 1024 candidates holds.
+// Words a row of the scratch matrix holds.
 static int scratch_row_words(int n) { return ((n + 31) / 32 + 3) / 4 * 4; }
 
-// labels int64. N in 1..4096. With scratch (s2d_greedy_nms_scratch_words(N)
-// 32-bit words, 16-byte aligned) the two-kernel path runs, without it the
+// Scratch words past the matrix: each block's seed past the first.
+static long long seed_words(int n) {
+  return n > kBlock ? (long long)((n + kBlock - 1) / kBlock - 1) * kBlockWords : 0;
+}
+
+// labels int64. N >= 1. With scratch (s2d_greedy_nms_scratch_words(N)
+// 32-bit words, 16-byte aligned) the grid + walk path runs, without it the
 // one-block kernel (N <= 1024).
 extern "C" int s2d_greedy_nms(const void* iou, const void* labels, void* scratch, void* keep,
                               int n, float threshold, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (n > kLargeMaxN || (scratch == nullptr && n > kMaxN)) return (int)cudaErrorInvalidValue;
+  if (scratch == nullptr && n > kMaxN) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
   if (scratch != nullptr) {
     const int wp = scratch_row_words(n);
+    if ((long long)n * wp + seed_words(n) > INT_MAX) return (int)cudaErrorInvalidValue;
+    unsigned* bits = (unsigned*)scratch;
+    unsigned* seeds = bits + (long long)n * wp;
+    if (n > kBlock) {
+      const cudaError_t err =
+          cudaMemsetAsync(seeds, 0, (size_t)seed_words(n) * sizeof(unsigned), st);
+      if (err != cudaSuccess) return (int)err;
+    }
     const int per_block = (kBitsThreads / 32) * kBatch;
     int blocks = (n * wp + per_block - 1) / per_block;
     if (blocks > kBitsMaxBlocks) blocks = kBitsMaxBlocks;
-    suppression_bits_kernel<<<blocks, kBitsThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)iou, (const long long*)labels, (unsigned*)scratch, n, wp, threshold);
-    const cudaError_t err = cudaGetLastError();
+    suppression_bits_kernel<<<blocks, kBitsThreads, 0, st>>>(
+        (const float*)iou, (const long long*)labels, bits, n, wp, threshold);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    greedy_walk_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-        (const unsigned*)scratch, wp, (unsigned char*)keep, n);
-    return (int)cudaGetLastError();
+    if (n <= kBlock) {
+      greedy_walk_kernel<false><<<1, 32, 0, st>>>(bits, wp, nullptr, (unsigned char*)keep, 0, n);
+      return (int)cudaGetLastError();
+    }
+    for (int r0 = 0; r0 < n; r0 += kBlock) {
+      const unsigned* seed = nullptr;
+      if (r0 > 0) {
+        unsigned* s = seeds + (long long)(r0 / kBlock - 1) * kBlockWords;
+        walk_seed_kernel<<<(r0 + kSeedRows - 1) / kSeedRows, kBlockWords, 0, st>>>(
+            bits, wp, (const unsigned char*)keep, s, r0);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        seed = s;
+      }
+      greedy_walk_kernel<true><<<1, 32, 0, st>>>(bits, wp, seed, (unsigned char*)keep, r0, n);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
   }
   const size_t bytes = (size_t)n * ((n + 31) / 32) * sizeof(unsigned);
   if (bytes > 48 * 1024) {  // above the default: opt in once per device
@@ -246,14 +321,17 @@ extern "C" int s2d_greedy_nms(const void* iou, const void* labels, void* scratch
       if (device < kMaxDevices) opted[device] = true;
     }
   }
-  greedy_nms_kernel<<<1, kThreads, bytes, (cudaStream_t)stream>>>(
+  greedy_nms_kernel<<<1, kThreads, bytes, st>>>(
       (const float*)iou, (const long long*)labels, (unsigned char*)keep, n, threshold);
   return (int)cudaGetLastError();
 }
 
-// Scratch words of s2d_greedy_nms's two-kernel path for N candidates.
+// Scratch words of s2d_greedy_nms's grid + walk path for N candidates (0
+// where they would pass 2^31 - 1).
 extern "C" int s2d_greedy_nms_scratch_words(int n) {
-  return n > 0 && n <= kLargeMaxN ? n * scratch_row_words(n) : 0;
+  if (n <= 0) return 0;
+  const long long words = (long long)n * scratch_row_words(n) + seed_words(n);
+  return words > INT_MAX ? 0 : (int)words;
 }
 
 // An empty kernel: the device time of a launch, K4's floor (chip_smoke.py).

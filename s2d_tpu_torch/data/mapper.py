@@ -14,18 +14,18 @@ of primary-view pixels to distill-view pixels (D P^-1), which the train
 step replays on the teacher's targets. It draws from its `RandomState` in
 the JAX mapper's order, so one seed gives the same clip on both. The
 frames come from `read_frames(record, indices)`, by default the record's
-image files; a host without an image library passes its own (the card's
-machine has neither cv2 nor PIL).
+image files through `load_image_robust`.
 
 `EvalMapper` is the evaluator's mapper (`evaluation/evaluator.py`): every
-frame of the video, read as RGB and resized with cv2 (INTER_LINEAR), as
-the JAX mapper does, to (T, H, W, 3) uint8; it decodes no target masks
-(the evaluator scores against the record's own RLEs). A host without cv2
-passes its frames to `evaluate_dataset(mapper=...)`.
+frame of the video, read as RGB and resized (INTER_LINEAR, the port's
+bit-exact `transforms.resize_linear`), as the JAX mapper does, to
+(T, H, W, 3) uint8; it decodes no target masks (the evaluator scores
+against the record's own RLEs).
 
-cv2 or PIL is imported only where a frame is read from an image file (a
-host with neither reads PNG files with `data/png.py`), and cv2 where
-`EvalMapper` resizes.
+JPEG and PNG files are read by the port's own codecs (`data/jpeg.py`,
+`data/png.py`), each equal to cv2's `imread` in RGB, whether or not cv2 or
+PIL is installed (the card's machine has neither); cv2 or PIL is imported
+only for a file of another format.
 """
 from __future__ import annotations
 
@@ -38,6 +38,9 @@ import numpy as np
 from ..config import Config
 from . import rle as rle_codec
 from .augment import ClipAugConfig, augment_clip, resize_shortest_edge
+from .jpeg import SOI as JPEG_SOI, read_jpeg
+from .png import SIGNATURE as PNG_SIGNATURE, read_png
+from .transforms import resize_linear
 
 
 def _cv2():
@@ -48,60 +51,66 @@ def _cv2():
     return cv2
 
 
-def load_image_robust(path: str, retries: int = 3, backoff: float = 0.5) -> np.ndarray:
-    """Read an RGB image with retry and exponential backoff (network
-    filesystems flake), by cv2 and else by PIL, as the JAX mapper. Without
-    either (the card's machine) a PNG is read by the port's own codec
-    (`data/png.py`); any other format raises ImportError."""
+def _read_other(path: str) -> np.ndarray:
+    """A file that is neither JPEG nor PNG, by cv2 and else by PIL, as the
+    JAX mapper reads every file; OSError where neither reads it."""
     cv2 = _cv2()
+    if cv2 is not None:
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is not None:
+            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
     try:
         from PIL import Image
     except ImportError:
-        Image = None
-    own_png = cv2 is None and Image is None and path.lower().endswith(".png")
-    if cv2 is None and Image is None and not own_png:
-        raise ImportError(
-            f"reading frame {path!r} needs cv2 (opencv-python) or PIL (pillow); "
-            "neither is installed. Pass frames to evaluate_dataset(mapper=...) instead"
-        )
+        if cv2 is None:
+            raise ImportError(
+                f"{path!r} is neither JPEG nor PNG, and reading other formats needs cv2 "
+                "(opencv-python) or PIL (pillow); neither is installed") from None
+        raise OSError(f"cv2 could not read {path!r}") from None
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def read_image(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of the image file at `path`. JPEG and PNG, told
+    apart by their first bytes, go through the port's own codecs
+    (`data/jpeg.py`, `data/png.py`) whether or not cv2 or PIL is installed,
+    each equal to cv2's `imread(path, IMREAD_COLOR)` in RGB; other formats
+    through cv2 or PIL where installed."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head.startswith(JPEG_SOI):
+        return read_jpeg(path)
+    if head.startswith(PNG_SIGNATURE):
+        return read_png(path)
+    return _read_other(path)
+
+
+def load_image_robust(path: str, retries: int = 3, backoff: float = 0.5) -> np.ndarray:
+    """`read_image` with retry and exponential backoff (network filesystems
+    flake), as the JAX mapper; a file that no reader can read raises
+    FileNotFoundError after the last try. A format the port's codecs refuse
+    (an arithmetic-coded or CMYK JPEG, a 16-bit PNG) raises ValueError at
+    once."""
     last_err: Exception | None = None
     for attempt in range(retries):
-        if own_png:
-            from .png import read_png
-
-            try:
-                return read_png(path)
-            except OSError as err:
-                last_err = err
-        if cv2 is not None:
-            img = cv2.imread(path, cv2.IMREAD_COLOR)
-            if img is not None:
-                return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-        if Image is not None:
-            try:
-                with Image.open(path) as im:
-                    return np.asarray(im.convert("RGB"))
-            except OSError as err:
-                last_err = err
+        try:
+            return read_image(path)
+        except ValueError:
+            raise
+        except OSError as err:
+            last_err = err
         time.sleep(backoff * (2 ** attempt))
     raise FileNotFoundError(f"could not read {path!r}: {last_err}")
 
 
 def resize_frames(frames: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
-    """(T, H, W, 3) uint8 -> (T, *size_hw, 3) uint8, bilinear."""
+    """(T, H, W, 3) uint8 -> (T, *size_hw, 3) uint8, bilinear: the port's
+    `transforms.resize_linear`, equal to the JAX mapper's cv2.resize
+    (INTER_LINEAR) on uint8, without cv2."""
     if tuple(frames.shape[1:3]) == tuple(size_hw):
         return frames
-    cv2 = _cv2()
-    if cv2 is None:
-        raise ImportError(
-            f"resizing frames of {tuple(frames.shape[1:3])} to {tuple(size_hw)} needs cv2 "
-            "(opencv-python), as the JAX mapper does. Pass frames at the test size to "
-            "evaluate_dataset(mapper=...) instead"
-        )
-    return np.stack([
-        cv2.resize(f, (size_hw[1], size_hw[0]), interpolation=cv2.INTER_LINEAR)
-        for f in frames
-    ])
+    return np.stack([resize_linear(f, size_hw) for f in frames])
 
 
 class EvalMapper:

@@ -165,25 +165,17 @@ def to_bbox(rle: RLE) -> List[float]:
 
 
 def polygons_to_mask(polygons: Sequence[Sequence[float]], h: int, w: int) -> np.ndarray:
-    """COCO polygon segmentation -> binary mask (cv2 fill, frPyObjects-like).
-    Needs cv2: a host without it (the card's machine) raises ImportError;
-    YTVIS pseudo-annotations are RLE and never come here."""
-    try:
-        import cv2
-    except ImportError:
-        raise ImportError(
-            "a polygon segmentation needs cv2 (cv2.fillPoly) to become a mask, and cv2 is not "
-            "installed; convert the annotations' polygons to RLE on a host that has it") from None
-
-    mask = np.zeros((h, w), dtype=np.uint8)
+    """COCO polygon segmentation -> binary mask, equal to JAX's (and so to
+    `cv2.fillPoly`) pixel for pixel: each part's coordinates rounded half to
+    even and cast to int32, parts of fewer than 6 numbers dropped, all parts
+    filled in one pass by the port's native scanline fill
+    (`native.fill_polygons`), cv2 or not."""
     pts = [
         np.round(np.asarray(p, dtype=np.float64).reshape(-1, 2)).astype(np.int32)
         for p in polygons
         if len(p) >= 6
     ]
-    if pts:
-        cv2.fillPoly(mask, pts, 1)
-    return mask.astype(bool)
+    return _native.fill_polygons(pts, h, w).astype(bool)
 
 
 def iou_intersection_union(a: RLE, b: RLE):

@@ -13,8 +13,12 @@ student/teacher checkpoint, MODEL.MASK_FORMER.TEST.EVAL_STUDENT picks the
 network, as `tools/demo_video.py`; a backbone-only one is grafted into the
 seeded init. The JAX package's flax params flattened to an .npz (see
 `checkpoint/from_jax.py`) load too. Without weights the model is
-initialised from a seed. cv2 is imported lazily, for frame
-I/O only. Each stage of a clip is a `torch.profiler.record_function` span
+initialised from a seed. Frames are read by `data/mapper.load_image_robust`
+(JPEG and PNG on the port's own codecs), resized by
+`data/transforms.resize_linear` (cv2's INTER_LINEAR, bit for bit) and the
+overlays and palette masks written by `data/png.write_png`, so the demo
+needs neither cv2 nor PIL; only --video-input (a video file) imports cv2,
+lazily, and without it raises ImportError naming the flag. Each stage of a clip is a `torch.profiler.record_function` span
 (preprocess, backbone, pixel_decoder, decoder, postprocess, finalize),
 which costs nothing while no profiler runs.
 """
@@ -33,7 +37,9 @@ from torch.profiler import record_function
 
 from .checkpoint.torch_import import load_weights, needs_init
 from .config import VideoConfig, load_config
-from .data.mapper import resize_shortest_edge
+from .data.mapper import load_image_robust, resize_shortest_edge
+from .data.png import write_png
+from .data.transforms import resize_linear
 from .evaluation.inference import finalize_predictions, postprocess_video
 from .models.meta_arch import build_model, preprocess_clip
 
@@ -147,25 +153,36 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _videos(args, cv2):
-    """[(name or None, loader)]: one video per directory when --input's glob
-    matches directories, else one video of the matched frames."""
-    def load_files(files):
-        return [cv2.cvtColor(cv2.imread(f), cv2.COLOR_BGR2RGB) for f in files]
+def _video_file_frames(path: str, cv2):
+    """The RGB frames of a video file, by cv2.VideoCapture."""
+    cap, raw = cv2.VideoCapture(path), []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        raw.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    if not raw:
+        raise SystemExit(f"no frames decoded from {path!r}")
+    return raw
 
-    if args.video_input:
-        def load_video(path=args.video_input):
-            cap, raw = cv2.VideoCapture(path), []
-            while True:
-                ok, frame = cap.read()
-                if not ok:
-                    break
-                raw.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
-            cap.release()
-            if not raw:
-                raise SystemExit(f"no frames decoded from {path!r}")
-            return raw
-        return [(None, load_video)]
+
+def _videos(args):
+    """[(name or None, loader)]: one video per directory when --input's glob
+    matches directories, else one video of the matched frames. Frames are
+    read by `load_image_robust` (JPEG and PNG on the port's own codecs)."""
+    def load_files(files):
+        return [load_image_robust(f) for f in files]
+
+    if args.video_input:  # the one input that still needs cv2
+        try:
+            import cv2
+        except ImportError:
+            raise ImportError(
+                f"--video-input {args.video_input!r}: reading a video file needs cv2 "
+                "(opencv-python), which is not installed; pass its frames as images with "
+                "--input instead") from None
+        return [(None, lambda path=args.video_input: _video_file_frames(path, cv2))]
     if not args.input:
         raise SystemExit("provide --input or --video-input")
     matches = sorted(glob.glob(args.input))
@@ -183,7 +200,9 @@ def _videos(args, cv2):
     return [(None, lambda fs=matches: load_files(fs))]
 
 
-def _write_outputs(cv2, out_dir, raw, preds, threshold, save_masks):
+def _write_outputs(out_dir, raw, preds, threshold, save_masks):
+    """The overlays (and with save_masks the palette masks) of one video as
+    PNG files, the pixels `tools/demo_video.py` writes with cv2."""
     os.makedirs(out_dir, exist_ok=True)
     keep = preds["scores"] >= threshold
     scores, masks = preds["scores"][keep], preds["masks"][keep]
@@ -193,8 +212,7 @@ def _write_outputs(cv2, out_dir, raw, preds, threshold, save_masks):
             color = np.asarray(PALETTE[ni % len(PALETTE)], np.float32)
             m = masks[ni, ti]
             overlay[m] = 0.5 * overlay[m] + 0.5 * color
-        cv2.imwrite(os.path.join(out_dir, f"frame_{ti:05d}.png"),
-                    cv2.cvtColor(overlay.astype(np.uint8), cv2.COLOR_RGB2BGR))
+        write_png(os.path.join(out_dir, f"frame_{ti:05d}.png"), overlay.astype(np.uint8))
         if save_masks:
             idmap = np.zeros(frame.shape[:2], np.uint8)
             for ni in range(len(scores) - 1, -1, -1):
@@ -202,15 +220,12 @@ def _write_outputs(cv2, out_dir, raw, preds, threshold, save_masks):
             palette_img = np.zeros((*frame.shape[:2], 3), np.uint8)
             for ni in range(len(scores)):
                 palette_img[idmap == ni + 1] = PALETTE[ni % len(PALETTE)]
-            cv2.imwrite(os.path.join(out_dir, f"mask_{ti:05d}.png"),
-                        cv2.cvtColor(palette_img, cv2.COLOR_RGB2BGR))
+            write_png(os.path.join(out_dir, f"mask_{ti:05d}.png"), palette_img)
     return len(scores)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    import cv2
-
     cfg = load_config(args.config_file or None, args.opts)
     weights = args.weights or cfg.weights
     if weights and not os.path.exists(weights):
@@ -222,7 +237,7 @@ def main(argv=None) -> int:
         if args.num_devices > 0:
             count = min(count, args.num_devices)
         devices = [torch.device("cuda", i) for i in range(max(count, 1))]
-    videos = _videos(args, cv2)
+    videos = _videos(args)
     predictors = [
         VideoPredictor(cfg, weights=weights or None, seed=args.seed, device=d)
         for d in devices[: len(videos)]
@@ -233,12 +248,11 @@ def main(argv=None) -> int:
         raw = load()
         oh, ow = raw[0].shape[:2]
         nh, nw = resize_shortest_edge(oh, ow, cfg.min_size_test, cfg.max_size_test)
-        frames = np.stack([cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LINEAR) for f in raw])
+        frames = np.stack([resize_linear(f, (nh, nw)) for f in raw])
         predictor = predictors[i % len(predictors)]
         preds = predictor(frames, output_size=(oh, ow))
         out_dir = args.output if name is None else os.path.join(args.output, name)
-        n_inst = _write_outputs(cv2, out_dir, raw, preds, args.confidence_threshold,
-                                args.save_masks)
+        n_inst = _write_outputs(out_dir, raw, preds, args.confidence_threshold, args.save_masks)
         print(f"[{name or 'video'} @ {predictor.device}] {n_inst} instances per frame")
     print(f"processed {len(videos)} video(s) on {len(predictors)} device(s) "
           f"in {time.perf_counter() - start:.2f}s")

@@ -7,8 +7,9 @@
 
 Input: `<frames-root>/<video>/*.jpg|*.png` (frames, sorted by name) and
 `<masks-root>/<video>/*.png` (per frame, in sorted order, one multi-colour
-PNG of stage-1 masks: one instance per non-black colour). PNGs are read by
-the port's own codec (`data/png.py`); a JPEG frame needs cv2 or PIL.
+PNG of stage-1 masks: one instance per non-black colour). JPEG and PNG are
+read by the port's own codecs (`data/jpeg.py`, `data/png.py`), as cv2 reads
+them, with or without cv2 and PIL.
 
 Per video: visibility curves -> visibility windows -> candidate-mask PNGs
 (`<output-root>/candidates/<video>/`) -> temporal correspondence matching ->
@@ -64,25 +65,17 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def read_frame(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 RGB: a PNG through the port's codec, else through
-    cv2 or PIL."""
-    from .data.mapper import load_image_robust
-    from .data.png import read_png
-
-    return read_png(path) if path.lower().endswith(".png") else load_image_robust(path)
-
-
 def load_video_inputs(args, video_dir: str) -> dict:
     """Host IO of one video: its frames and its mask PNGs, every mask under
     an overall id (0, 1, ... over the video's frames in order)."""
+    from .data.mapper import load_image_robust
     from .data.png import read_png
     from .keymask import load_masks_from_color_png
 
     name = os.path.basename(video_dir)
     frame_files = sorted(glob.glob(os.path.join(video_dir, "*.jpg"))
                          + glob.glob(os.path.join(video_dir, "*.png")))
-    video = np.stack([read_frame(f) for f in frame_files])
+    video = np.stack([load_image_robust(f) for f in frame_files])
     mask_files = sorted(glob.glob(os.path.join(args.masks_root, name, "*.png")))
     masks_per_frame = []
     overall_ids, frame_of_id, mask_of_id = [], [], {}

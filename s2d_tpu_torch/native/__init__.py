@@ -1,14 +1,17 @@
-"""ctypes bindings for the port's native RLE ops (`rle_ops.cpp`) and the
-PNG codec's scanline unfilter.
+"""ctypes bindings for the port's native libraries: the RLE ops, the PNG
+codec's scanline unfilter and the polygon fill (`rle_ops.cpp`), and the JPEG
+codec (`jpeg.cpp`).
 
-The port builds its own copy of the C++ source, never the JAX package's
-binary: at the first `lib()` call, `g++ -O3 -shared -fPIC` compiles
-`rle_ops.cpp` into `build/s2d_tpu_torch/librle_ops_<hash>.so` at the root
-of the checkout, named by a hash of the source and flags (as `_build.py`
-names the CUDA library). Without g++, or when the build fails, `lib()`
-returns None and every wrapper returns None, so the callers in
-`data/rle.py`, `data/png.py` and `evaluation/ytvos_eval.py` take their
-numpy paths.
+The port builds its own copy of each C++ source, never the JAX package's
+binary: at the first `lib()` (or `jpeg_lib()`) call, `g++ -O3 -shared
+-fPIC` compiles the source into `build/s2d_tpu_torch/lib<stem>_<hash>.so` at
+the root of the checkout, named by a hash of the source and flags (as
+`_build.py` names the CUDA library). Each build goes to a temporary file that
+is then renamed, so two processes or threads that build at once never load a
+half-written library. Without g++, or when the build fails, the loader
+returns None: the RLE and PNG wrappers then return None and their callers in
+`data/rle.py`, `data/png.py` and `evaluation/ytvos_eval.py` take their numpy
+paths, while the polygon fill and the JPEG codec, which have none, raise.
 """
 from __future__ import annotations
 
@@ -17,21 +20,24 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "rle_ops.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "s2d_tpu_torch"
+HERE = Path(__file__).resolve().parent
+SOURCE = HERE / "rle_ops.cpp"
+JPEG_SOURCE = HERE / "jpeg.cpp"
+BUILD_DIR = HERE.parent.parent / "build" / "s2d_tpu_torch"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
-_LIB: Optional[ctypes.CDLL] = None
-_TRIED = False
 
 _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _I = ctypes.c_int64
+_I32 = ctypes.c_int32
 
 SIGNATURES = {
     "rle_encode": (_I, [_u8p, _I, _i64p, _I]),
@@ -41,16 +47,26 @@ SIGNATURES = {
     "rle_counts_to_string": (_I, [_i64p, _I, ctypes.c_char_p, _I]),
     "rle_string_to_counts": (_I, [ctypes.c_char_p, _I, _i64p, _I]),
     "png_unfilter": (_I, [_u8p, _I, _I, _I, _u8p]),
+    "poly_fill": (None, [_i32p, _i64p, _I, _u8p, _I, _I, ctypes.c_uint8]),
+}
+JPEG_SIGNATURES = {
+    "s2d_jpeg_header": (ctypes.c_int, [ctypes.c_char_p, _I, _i32p, ctypes.c_char_p, ctypes.c_int]),
+    "s2d_jpeg_decode": (ctypes.c_int, [ctypes.c_char_p, _I, _u8p, _I32, _I32, ctypes.c_char_p,
+                                       ctypes.c_int]),
+    "s2d_jpeg_encode": (_I, [_u8p, _I32, _I32, _I32, _I32, _I32, _u8p, _I]),
 }
 
+_LOADED: Dict[Path, Optional[ctypes.CDLL]] = {}
+_LOCK = threading.Lock()
 
-def library_path() -> Path:
+
+def library_path(source: Path = SOURCE) -> Path:
     digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"librle_ops_{digest.hexdigest()[:16]}.so"
+    digest.update(source.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(target: Path) -> bool:
+def _compile(source: Path, target: Path) -> bool:
     """g++ into a temporary file beside the target, then rename: a
     concurrent or cut build never leaves a half-written library under the
     final name."""
@@ -61,7 +77,7 @@ def _compile(target: Path) -> bool:
         return False
     os.close(fd)
     try:
-        subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE)],
+        subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, str(source)],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, target)
         return True
@@ -71,26 +87,36 @@ def _compile(target: Path) -> bool:
         return False
 
 
+def _load(source: Path, signatures) -> Optional[ctypes.CDLL]:
+    """The loaded library of `source`, built first if this source has no
+    build yet; None where it cannot be built or loaded (tried once)."""
+    with _LOCK:
+        if source in _LOADED:
+            return _LOADED[source]
+        cdll = None
+        path = library_path(source)
+        if path.exists() or _compile(source, path):
+            try:
+                cdll = ctypes.CDLL(str(path))
+            except OSError:
+                cdll = None
+        if cdll is not None:
+            for name, (restype, argtypes) in signatures.items():
+                fn = getattr(cdll, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+        _LOADED[source] = cdll
+        return cdll
+
+
 def lib() -> Optional[ctypes.CDLL]:
-    """The loaded library, built first if this source has no build yet;
-    None where it cannot be built or loaded."""
-    global _LIB, _TRIED
-    if _LIB is not None or _TRIED:
-        return _LIB
-    _TRIED = True
-    path = library_path()
-    if not path.exists() and not _compile(path):
-        return None
-    try:
-        cdll = ctypes.CDLL(str(path))
-    except OSError:
-        return None
-    for name, (restype, argtypes) in SIGNATURES.items():
-        fn = getattr(cdll, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    _LIB = cdll
-    return _LIB
+    """The RLE / PNG / polygon library (None where it cannot be built)."""
+    return _load(SOURCE, SIGNATURES)
+
+
+def jpeg_lib() -> Optional[ctypes.CDLL]:
+    """The JPEG codec's library (None where it cannot be built)."""
+    return _load(JPEG_SOURCE, JPEG_SIGNATURES)
 
 
 def encode_counts(mask: np.ndarray) -> Optional[np.ndarray]:
@@ -223,3 +249,20 @@ def png_unfilter(data: np.ndarray, h: int, stride: int, bpp: int) -> Optional[np
     if bad >= 0:
         raise ValueError(f"PNG row {bad}: unknown filter type {data[bad * (stride + 1)]}")
     return out
+
+
+def fill_polygons(polygons: Sequence[np.ndarray], h: int, w: int) -> np.ndarray:
+    """(h, w) uint8 mask of `polygons` ((K, 2) int32 x, y vertices each)
+    filled with 1 in one pass, as one `cv2.fillPoly` call (rle_ops.cpp).
+    Raises RuntimeError where the library cannot be built."""
+    cdll = lib()
+    if cdll is None:
+        raise RuntimeError(f"the native library {SOURCE.name} could not be built with g++; "
+                           "the polygon fill has no other implementation")
+    mask = np.zeros((h, w), np.uint8)
+    parts = [np.asarray(p, np.int32).reshape(-1, 2) for p in polygons]
+    if parts and h > 0 and w > 0:
+        xy = np.ascontiguousarray(np.concatenate(parts).reshape(-1))
+        counts = np.asarray([len(p) for p in parts], np.int64)
+        cdll.poly_fill(xy, counts, len(parts), mask, h, w, 1)
+    return mask

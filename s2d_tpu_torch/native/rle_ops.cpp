@@ -13,6 +13,8 @@
 // (s2d_tpu_torch/native/__init__.py, which also holds the ctypes bindings);
 // without g++ the callers take their numpy paths.
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -263,6 +265,254 @@ int64_t png_unfilter(const uint8_t* data, int64_t h, int64_t stride, int64_t bpp
         }
     }
     return -1;
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------ polygon fill
+//
+// cv2.fillPoly(mask, polygons, 1) with its defaults (LINE_8, shift 0), pixel
+// for pixel, the way OpenCV 5's drawing.cpp does it: every edge of every
+// polygon is drawn as an 8-connected line (LineIterator's Bresenham, clipped
+// to the image), and the edges of all the polygons together are
+// scan-converted with x in 16.16 fixed point, each row filled from ceil(x)
+// to floor(x) between pairs of active edges in x order (so where two
+// polygons overlap, the overlap is filled twice and stays filled, and where
+// one polygon crosses itself every span between edge pairs is filled).
+
+namespace {
+
+constexpr int kXYShift = 16;
+constexpr int64_t kXYOne = (int64_t)1 << kXYShift;
+
+struct Pt {
+    int64_t x, y;
+};
+
+// OpenCV's clipLine on a w x h image; true when a part of the segment lies
+// inside (the points are moved onto the image's border)
+bool clip_line(int64_t w, int64_t h, Pt& p1, Pt& p2) {
+    if (w <= 0 || h <= 0) return false;
+    const int64_t right = w - 1, bottom = h - 1;
+    int64_t &x1 = p1.x, &y1 = p1.y, &x2 = p2.x, &y2 = p2.y;
+    int c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8;
+    int c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8;
+    if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+        int64_t a;
+        if (c1 & 12) {
+            a = c1 < 8 ? 0 : bottom;
+            x1 += (int64_t)((double)(a - y1) * (x2 - x1) / (y2 - y1));
+            y1 = a;
+            c1 = (x1 < 0) + (x1 > right) * 2;
+        }
+        if (c2 & 12) {
+            a = c2 < 8 ? 0 : bottom;
+            x2 += (int64_t)((double)(a - y2) * (x2 - x1) / (y2 - y1));
+            y2 = a;
+            c2 = (x2 < 0) + (x2 > right) * 2;
+        }
+        if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+            if (c1) {
+                a = c1 == 1 ? 0 : right;
+                y1 += (int64_t)((double)(a - x1) * (y2 - y1) / (x2 - x1));
+                x1 = a;
+                c1 = 0;
+            }
+            if (c2) {
+                a = c2 == 1 ? 0 : right;
+                y2 += (int64_t)((double)(a - x2) * (y2 - y1) / (x2 - x1));
+                x2 = a;
+                c2 = 0;
+            }
+        }
+    }
+    return (c1 | c2) == 0;
+}
+
+// cv2.line(mask, p1, p2, value, LINE_8): LineIterator(leftToRight=true)
+void draw_line(uint8_t* mask, int64_t h, int64_t w, Pt p1, Pt p2, uint8_t value) {
+    if ((uint64_t)p1.x >= (uint64_t)w || (uint64_t)p2.x >= (uint64_t)w ||
+        (uint64_t)p1.y >= (uint64_t)h || (uint64_t)p2.y >= (uint64_t)h) {
+        if (!clip_line(w, h, p1, p2)) return;
+    }
+    int64_t dx = p2.x - p1.x, dy = p2.y - p1.y;
+    if (dx < 0) {
+        dx = -dx;
+        dy = -dy;
+        std::swap(p1, p2);
+    }
+    int64_t sy = 1;
+    if (dy < 0) {
+        dy = -dy;
+        sy = -1;
+    }
+    const bool vert = dy > dx;
+    if (vert) std::swap(dx, dy);
+    // step along the major axis every time; along the minor one when err < 0
+    int64_t err = dx - (dy + dy);
+    const int64_t plus = dx + dx, minus = -(dy + dy);
+    int64_t x = p1.x, y = p1.y;
+    for (int64_t i = 0; i <= dx; ++i) {
+        mask[y * w + x] = value;
+        const bool step = err < 0;
+        err += minus + (step ? plus : 0);
+        if (vert) {
+            y += sy;
+            if (step) x += 1;
+        } else {
+            x += 1;
+            if (step) y += sy;
+        }
+    }
+}
+
+struct Edge {
+    int64_t y0, y1;
+    int64_t x, dx;
+    Edge* next;
+};
+
+}  // namespace
+
+extern "C" {
+
+// Fill `nparts` polygons into the row-major (h, w) uint8 mask with `value`,
+// as one cv2.fillPoly call does: part i has counts[i] vertices, (x, y) int32
+// pairs one after another in `xy`.
+void poly_fill(const int32_t* xy, const int64_t* counts, int64_t nparts, uint8_t* mask,
+               int64_t h, int64_t w, uint8_t value) {
+    std::vector<Edge> edges;
+    const int32_t* v = xy;
+    for (int64_t part = 0; part < nparts; ++part) {
+        const int64_t n = counts[part];
+        if (n <= 0) continue;
+        Pt p0{v[2 * (n - 1)], v[2 * (n - 1) + 1]};
+        for (int64_t i = 0; i < n; ++i) {
+            const Pt p1{v[2 * i], v[2 * i + 1]};
+            draw_line(mask, h, w, p0, p1, value);
+            // the edge's ends with x in 16.16 fixed point; an edge that
+            // leaves the image takes its slope and offset from the drawn
+            // (clipped) segment, extended over the edge's own rows
+            Pt c0{p0.x * kXYOne, p0.y}, c1{p1.x * kXYOne, p1.y};
+            if ((uint64_t)p0.x >= (uint64_t)w || (uint64_t)p1.x >= (uint64_t)w ||
+                (uint64_t)p0.y >= (uint64_t)h || (uint64_t)p1.y >= (uint64_t)h) {
+                Pt t0 = p0, t1 = p1;
+                clip_line(w, h, t0, t1);
+                if (t0.y != t1.y) {
+                    c0.y = t0.y;
+                    c1.y = t1.y;
+                }
+                c0.x = t0.x * kXYOne;
+                c1.x = t1.x * kXYOne;
+            }
+            if (p0.y != p1.y) {
+                Edge e;
+                e.dx = (c1.x - c0.x) / (c1.y - c0.y);
+                if (p0.y < p1.y) {
+                    e.y0 = p0.y;
+                    e.y1 = p1.y;
+                    e.x = c0.x + (p0.y - c0.y) * e.dx;
+                } else {
+                    e.y0 = p1.y;
+                    e.y1 = p0.y;
+                    e.x = c1.x + (p1.y - c1.y) * e.dx;
+                }
+                e.next = nullptr;
+                edges.push_back(e);
+            }
+            p0 = p1;
+        }
+        v += 2 * n;
+    }
+    // FillEdgeCollection
+    const int64_t total = (int64_t)edges.size();
+    if (total < 2) return;
+    int64_t y_max = INT64_MIN, y_min = INT64_MAX;
+    int64_t x_max = INT64_MIN, x_min = INT64_MAX;
+    for (const Edge& e : edges) {
+        const int64_t x1 = e.x + (e.y1 - e.y0) * e.dx;
+        y_min = std::min(y_min, e.y0);
+        y_max = std::max(y_max, e.y1);
+        x_min = std::min(x_min, std::min(e.x, x1));
+        x_max = std::max(x_max, std::max(e.x, x1));
+    }
+    if (y_max < 0 || y_min >= h || x_max < 0 || x_min >= (w << kXYShift)) return;
+    std::sort(edges.begin(), edges.end(), [](const Edge& a, const Edge& b) {
+        if (a.y0 != b.y0) return a.y0 < b.y0;
+        if (a.x != b.x) return a.x < b.x;
+        return a.dx < b.dx;
+    });
+    Edge sentinel;
+    sentinel.y0 = INT64_MAX;
+    edges.push_back(sentinel);
+    Edge head;
+    head.next = nullptr;
+    int64_t i = 0;
+    Edge* e = &edges[0];
+    y_max = std::min(y_max, h);
+    for (int64_t y = e->y0; y < y_max; ++y) {
+        Edge* prelast = &head;
+        Edge* last = head.next;
+        bool draw = false;
+        const bool clipline = y < 0;
+        while (last || e->y0 == y) {
+            if (last && last->y1 == y) {  // the edge ends: out of the active list
+                prelast->next = last->next;
+                last = last->next;
+                continue;
+            }
+            Edge* keep_prelast = prelast;
+            if (last && (e->y0 > y || last->x < e->x)) {
+                prelast = last;
+                last = last->next;
+            } else if (i < total) {  // the next edge starts: into the list
+                prelast->next = e;
+                e->next = last;
+                prelast = e;
+                e = &edges[++i];
+            } else {
+                break;
+            }
+            if (draw) {
+                if (!clipline) {
+                    // the pixels from ceil(left) to floor(right)
+                    const int64_t lo = std::min(keep_prelast->x, prelast->x);
+                    const int64_t hi = std::max(keep_prelast->x, prelast->x);
+                    int64_t x1 = (lo + kXYOne - 1) >> kXYShift, x2 = hi >> kXYShift;
+                    if (x1 < w && x2 >= 0) {
+                        if (x1 < 0) x1 = 0;
+                        if (x2 >= w) x2 = w - 1;
+                        if (x1 <= x2) std::memset(mask + y * w + x1, value, (size_t)(x2 - x1 + 1));
+                    }
+                }
+                keep_prelast->x += keep_prelast->dx;
+                prelast->x += prelast->dx;
+            }
+            draw = !draw;
+        }
+        // bubble sort of the active list by x
+        Edge* keep = nullptr;
+        do {
+            prelast = &head;
+            last = head.next;
+            Edge* last_exchange = nullptr;
+            while (last != keep && last->next != nullptr) {
+                Edge* te = last->next;
+                if (last->x > te->x) {
+                    prelast->next = te;
+                    last->next = te->next;
+                    te->next = last;
+                    prelast = te;
+                    last_exchange = prelast;
+                } else {
+                    prelast = last;
+                    last = te;
+                }
+            }
+            if (last_exchange == nullptr) break;
+            keep = last_exchange;
+        } while (keep != head.next && keep != &head);
+    }
 }
 
 }  // extern "C"

@@ -4,10 +4,11 @@ Counterpart of `s2d_tpu/ops/nms.py`. `greedy_mask_nms` launches
 `csrc/nms.cu`, which replaces the TPU kernel `_nms_kernel` (K4), for CUDA
 tensors and takes the plain loop `greedy_mask_nms_plain` for CPU tensors.
 Below WALK_FROM candidates the kernel is one block with its rows in shared
-memory; from WALK_FROM up to MAX_CANDIDATES a grid writes them to a scratch
-matrix (allocated here) and one warp walks them (box NMS: the RPN's 1000
-candidates, the cascade's 256, the TTA merge's up to 1800 at the CutLER
-defaults).
+memory; from WALK_FROM on a grid writes them to a scratch matrix (allocated
+here) and one warp walks them (box NMS: the RPN's 1000 candidates, the
+cascade's 256, the TTA merge's up to 1800 at the CutLER defaults); past
+4096 candidates in blocks of 4096, each block's removed set seeded by a grid
+pass over the kept candidates before it: any N, as JAX's box NMS.
 
 `mask_iou_matrix` stays a matrix product, as in JAX where XLA computes it
 outside any kernel. It must be exact: the keep-set flips at the 0.75
@@ -23,11 +24,11 @@ import torch
 
 from .. import _build
 
-MAX_CANDIDATES = 4096  # the removed set: 32 lanes of one warp x 4 words x 32 bits
-# candidates from which the scratch path runs (at most 1025: the one-block
-# kernel's removed set is 32 lanes x 32 bits); on an H100 the one-block
-# kernel is the faster at N = 50 and the scratch path from N = 128 on
-# (chip_smoke.py phase 15 times both; PERF.md, K4's row)
+# the most the one-block kernel takes (its removed set: 32 lanes x 32 bits)
+ONE_BLOCK_MAX = 1024
+# candidates from which the scratch path runs (at most ONE_BLOCK_MAX + 1);
+# on an H100 the one-block kernel is the faster at N = 50 and the scratch
+# path from N = 128 on (chip_smoke.py phase 15 times both; PERF.md, K4's row)
 WALK_FROM = 128
 EXACT_F32 = 1 << 24
 
@@ -94,8 +95,8 @@ def greedy_mask_nms(
     n = iou.shape[0]
     if tuple(iou.shape) != (n, n) or tuple(labels.shape) != (n,):
         raise ValueError(f"iou {tuple(iou.shape)}, labels {tuple(labels.shape)}")
-    if not 0 < n <= MAX_CANDIDATES:
-        raise ValueError(f"{n} candidates; the kernel takes 1..{MAX_CANDIDATES}")
+    if n == 0:
+        return torch.ones((0,), dtype=torch.bool, device=iou.device)
     if iou.dtype != torch.float32 or not iou.is_contiguous():
         raise TypeError(f"iou must be contiguous float32, got {iou.dtype}")
     if labels.device != iou.device or labels.is_floating_point():
@@ -106,6 +107,8 @@ def greedy_mask_nms(
     scratch = None
     if n >= WALK_FROM:
         words = lib.s2d_greedy_nms_scratch_words(n)
+        if words == 0:
+            raise ValueError(f"{n} candidates: the suppression matrix passes 2^31 words")
         scratch = torch.empty((words,), dtype=torch.int32, device=iou.device)
     rc = lib.s2d_greedy_nms(
         iou.data_ptr(), labels.data_ptr(), None if scratch is None else scratch.data_ptr(),

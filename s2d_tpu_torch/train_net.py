@@ -28,8 +28,11 @@ printed as bbox_TTA / segm_TTA.
 On a CUDA device (the default) every box NMS runs K4: one a train
 micro-step (the RPN's), two an eval image (the RPN's and the cascade's),
 two a TTA augmentation (its boxes pass's; the mask pass runs the mask
-head alone) and one for the merge. TF32 is off. A card's machine has no cv2 or PIL: images must be PNG
-files (`data/png.py`) and segmentations RLE (a polygon needs cv2).
+head alone) and one for the merge. TF32 is off. A card's machine has no
+cv2 or PIL, and needs neither: JPEG and PNG images are read by the port's
+own codecs (`data/jpeg.py`, `data/png.py`) and polygon segmentations filled
+by its native scanline fill (`data/rle.polygons_to_mask`), each equal to
+cv2's.
 """
 from __future__ import annotations
 

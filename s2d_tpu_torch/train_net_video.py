@@ -38,9 +38,11 @@ every TEST.EVAL_PERIOD steps into `<OUTPUT_DIR>/inference_<step>`, and with
 of the run. A caller without an image library passes `train(...,
 mapper=, eval_mapper=)` its own frames.
 
-Not ported (ROADMAP queue 1): the COCO pseudo-clip training sets (item 8),
---model-parallel > 1, --time-parallel and more than one process (item 7):
-they raise NotImplementedError.
+A DATASETS.TRAIN name that is a registered COCO set, not a YTVIS one,
+trains as pseudo-clips (`data/image_datasets.py`), as in JAX.
+
+Not ported (ROADMAP queue 1, item 1): --model-parallel > 1, --time-parallel
+and more than one process: they raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -120,8 +122,14 @@ def train_weights(cfg, weights: str, seed: int = 0):
     return None, None
 
 
-def train_datasets(names):
-    """The records of the registered YTVIS sets `names`, concatenated."""
+def train_datasets(names, clip_len: int):
+    """The records of DATASETS.TRAIN `names`, concatenated: a registered YTVIS
+    set as it is; else a registered COCO set (`data/coco.get_coco_dataset`)
+    as pseudo-clips of `clip_len` copies of each image
+    (`data/image_datasets.coco_to_clip_record`), as
+    `tools/train_net_video.py:245-260`. An unknown name raises KeyError."""
+    from .data.coco import get_coco_dataset
+    from .data.image_datasets import coco_to_clip_record
     from .data.ytvis import get_dataset
 
     dicts = []
@@ -129,11 +137,8 @@ def train_datasets(names):
         try:
             records, _ = get_dataset(name)
         except KeyError:
-            raise NotImplementedError(
-                f"dataset {name!r} is not a registered YTVIS set; the COCO image sets that "
-                "the JAX trainer turns into pseudo-clips (s2d_tpu/data/coco.py, "
-                "image_datasets.coco_to_clip_record) are not ported yet (ROADMAP queue 1, "
-                "item 8)") from None
+            images, _ = get_coco_dataset(name)
+            records = [coco_to_clip_record(r, clip_len) for r in images]
         dicts.extend(records)
     return dicts
 
@@ -141,14 +146,14 @@ def train_datasets(names):
 def _check_single_process(args) -> None:
     if args.time_parallel:
         raise NotImplementedError(
-            "--time-parallel (frame-parallel eval) is not ported yet (ROADMAP queue 1, item 7)")
+            "--time-parallel (frame-parallel eval) is not ported yet (ROADMAP queue 1, item 1)")
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 is not ported yet (ROADMAP queue 1, item 7)")
+            "--model-parallel > 1 is not ported yet (ROADMAP queue 1, item 1)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
             "training or evaluating in more than one process (DDP) is not ported yet "
-            "(ROADMAP queue 1, item 7)")
+            "(ROADMAP queue 1, item 1)")
 
 
 def evaluate(cfg, args, seed: int) -> int:
@@ -206,7 +211,7 @@ def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
 
     device = torch.device(args.device)
     os.makedirs(cfg.output_dir, exist_ok=True)
-    dicts = train_datasets(cfg.datasets.train)
+    dicts = train_datasets(cfg.datasets.train, cfg.input.sampling_frame_num)
     if mapper is None:
         mapper = ClipMapper(MapperConfig.from_config(cfg), seed=seed)
     student_w, teacher_w = train_weights(cfg, args.weights or cfg.model.weights, seed)

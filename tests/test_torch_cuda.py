@@ -62,6 +62,18 @@ def _nms_case(seed, n, grid):
     return iou, labels
 
 
+def _sparse_nms_case(seed, n):
+    """IoUs below the threshold but for ~3 pairs a candidate above it and ~1
+    at it: the kept candidates spread over the whole score order."""
+    rng = np.random.RandomState(seed)
+    iou = (rng.rand(n, n) * 0.7).astype(np.float32)
+    for value, pairs in ((0.8, 3 * n), (0.75, n)):
+        iou[rng.randint(0, n, pairs), rng.randint(0, n, pairs)] = value
+    iou = np.maximum(iou, iou.T)
+    np.fill_diagonal(iou, 1.0)
+    return iou, rng.randint(0, 2, n).astype(np.int32)
+
+
 # K6 at small shapes: ng=2, rows h*g = 6 of k = 8, W = 5 columns of d = 8
 # channels, gqp = 256 points (2 tiles of 128)
 ABLATE = dict(ng=2, hg=6, k=8, w=5, d=8, p_tile=128, gqp=256)
@@ -590,7 +602,7 @@ def test_cuda_nms_sizes_and_label_ties(cuda, n):
 def test_cuda_nms_one_block_kernel_to_its_most(cuda, monkeypatch, n):
     """The one-block kernel (rows in shared memory, 128 KB at N = 1024) at
     sizes the wrapper gives the scratch path: the same keep masks."""
-    monkeypatch.setattr(nms, "WALK_FROM", nms.MAX_CANDIDATES + 1)
+    monkeypatch.setattr(nms, "WALK_FROM", nms.ONE_BLOCK_MAX + 1)
     for seed, grid in ((0, True), (1, False)):
         iou, labels = _nms_case(seed, n, grid)
         iou_t = torch.from_numpy(iou).to(cuda)
@@ -600,13 +612,27 @@ def test_cuda_nms_one_block_kernel_to_its_most(cuda, monkeypatch, n):
 
 
 @pytest.mark.cuda
-def test_cuda_nms_raises_past_its_most(cuda):
-    """Past MAX_CANDIDATES the wrapper raises with the count; no plain loop
-    takes over."""
-    n = nms.MAX_CANDIDATES + 1
-    iou = torch.zeros((n, n), device=cuda)
-    with pytest.raises(ValueError, match=str(n)):
-        nms.greedy_mask_nms(iou, torch.zeros(n, dtype=torch.int64, device=cuda), 0.5)
+@pytest.mark.parametrize("n", [4097, 6000, 8192])
+def test_cuda_nms_past_one_walk_block(cuda, n):
+    """Past 4096 candidates (a walk block) K4 walks in blocks, each seeded
+    from the kept candidates before it: at 4097 (one candidate in the second
+    block), 6000 and 8192 (two whole blocks), seeded IoUs with ties with the
+    threshold, at random, and sparse (kept candidates in every block), one
+    label, two and three: keep masks exactly the plain loop's, one launch a
+    call."""
+    for seed, case in ((0, "grid"), (1, "random"), (2, "sparse")):
+        if case == "sparse":
+            iou, labels = _sparse_nms_case(seed, n)
+        else:
+            iou, labels = _nms_case(seed, n, case == "grid")
+        if case == "random":
+            labels[:] = 0
+        iou_t = torch.from_numpy(iou).to(cuda)
+        lab_t = torch.from_numpy(labels).to(cuda, torch.int64)
+        before = nms.LAUNCHES
+        got = nms.greedy_mask_nms(iou_t, lab_t, 0.75)
+        assert nms.LAUNCHES == before + 1
+        assert torch.equal(got, nms.greedy_mask_nms_plain(iou_t, lab_t, 0.75)), (n, seed)
 
 
 @pytest.mark.cuda

@@ -140,13 +140,21 @@ def test_mapper_and_copy_paste_match_jax(coco_set):
     assert prng.rand() == jrng.rand()
 
 
+# two overlapping parts, one leaving the image, one with a .5 to round to even
+POLYS = [[2.0, 3.0, 30.5, 4.0, 11.0, 37.9, -6.0, 20.0], [20.0, 10.0, 70.0, 12.5, 40.0, 39.0]]
+
+
 def test_stage1_runs_without_jax_cv2_or_pil(coco_set, tmp_path):
     """With jax, flax, yaml, s2d_tpu, cv2 and PIL blocked on import (the
     card's machine has none of them): stage 1's modules and chip_smoke
-    import, a PNG is read by data/png.py (the pixels of cv2's read), a JPEG
-    raises with the present message, and the train mapper maps an image of
-    the PNG set with its RLE masks."""
+    import, a PNG is read by data/png.py and a JPEG by data/jpeg.py (the
+    pixels of cv2's reads), polygons are filled as cv2.fillPoly fills them,
+    and the train mapper maps an image of the PNG set with its RLE masks."""
+    import cv2
+
     png = os.path.join(coco_set[1], "0.png")
+    cv2.imwrite(str(tmp_path / "frame.jpg"),
+                np.random.RandomState(1).randint(0, 256, (30, 44, 3), np.uint8))
     code = (
         "import sys\n"
         "class Block:\n"
@@ -161,12 +169,10 @@ def test_stage1_runs_without_jax_cv2_or_pil(coco_set, tmp_path):
         "from s2d_tpu_torch.data import coco, mapper\n"
         f"img = mapper.load_image_robust({png!r})\n"
         f"np.save({str(tmp_path / 'img.npy')!r}, img)\n"
-        "try:\n"
-        "    mapper.load_image_robust('frame.jpg')\n"
-        "except ImportError as e:\n"
-        "    assert 'cv2' in str(e) and 'PIL' in str(e)\n"
-        "else:\n"
-        "    raise AssertionError('a JPEG without cv2 or PIL must raise')\n"
+        f"jpg = mapper.load_image_robust({str(tmp_path / 'frame.jpg')!r})\n"
+        f"np.save({str(tmp_path / 'jpg.npy')!r}, jpg)\n"
+        "from s2d_tpu_torch.data import rle\n"
+        f"np.save({str(tmp_path / 'poly.npy')!r}, rle.polygons_to_mask({POLYS!r}, 40, 56))\n"
         f"coco.register_coco('blocked', {coco_set[0]!r}, {coco_set[1]!r}, True)\n"
         "cfg = train_net.build_config(train_net.parse_args(['--image-size', '64']))[0]\n"
         "sample = s2d_tpu_torch.train.cutler_trainer.map_image_record(\n"
@@ -177,11 +183,15 @@ def test_stage1_runs_without_jax_cv2_or_pil(coco_set, tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    import cv2
-
     ref = cv2.cvtColor(cv2.imread(png, cv2.IMREAD_COLOR), cv2.COLOR_BGR2RGB)
     np.testing.assert_array_equal(np.load(tmp_path / "img.npy"), ref)
     np.testing.assert_array_equal(read_png(png), ref)
+    jpg = cv2.imread(str(tmp_path / "frame.jpg"), cv2.IMREAD_COLOR)[..., ::-1]
+    np.testing.assert_array_equal(np.load(tmp_path / "jpg.npy"), jpg)
+    fill = np.zeros((40, 56), np.uint8)
+    cv2.fillPoly(fill, [np.round(np.asarray(p, np.float64).reshape(-1, 2)).astype(np.int32)
+                        for p in POLYS], 1)
+    np.testing.assert_array_equal(np.load(tmp_path / "poly.npy"), fill.astype(bool))
 
 
 # ---------------------------------------------------------------- train

@@ -256,12 +256,12 @@ def test_eval_mapper_matches_jax(tmp_path, monkeypatch):
     np.testing.assert_array_equal(got["image"], ref["image"])
     for key in ("video_id", "height", "width", "selected_idx"):
         assert got[key] == ref[key]
-    # without cv2 a frame at the test size passes; a resize raises, naming mapper=
+    # without cv2 a frame at the test size passes as it is, and a resize is
+    # cv2's, exactly (the port's resize_linear)
     frames = np.stack([port_mapper.load_image_robust(f) for f in record["file_names"]])
-    monkeypatch.setattr(port_mapper, "_cv2", lambda: None)
+    monkeypatch.setitem(sys.modules, "cv2", None)
     assert port_mapper.resize_frames(got["image"], (64, 107)) is got["image"]
-    with pytest.raises(ImportError, match="mapper="):
-        port_mapper.resize_frames(frames, (64, 107))
+    np.testing.assert_array_equal(port_mapper.resize_frames(frames, (64, 107)), ref["image"])
 
 
 # ------------------------------------------------------------------ the evaluator
@@ -397,20 +397,28 @@ def test_eval_cli_on_cpu(tmp_path, monkeypatch, fresh_registries, capsys):
     assert "[ytvis_2021_valid_cls_agnostic] AP: " in printed and "frames_per_second" in printed
     results = json.loads((out / "results.json").read_text())
     assert results and all(len(r["segmentations"]) == 3 for r in results)
-    # training is ported: a set that is no registered YTVIS set raises
-    # before the train state is built (the COCO pseudo-clips are not ported)
-    with pytest.raises(NotImplementedError, match="COCO"):
+    # training reads a registered COCO set as pseudo-clips (its json is not
+    # under S2D_DATASETS here, so reading it raises) and raises KeyError for
+    # a name no registry holds, both before the train state is built
+    with pytest.raises(FileNotFoundError, match="instances_train2017.json"):
         train_net_video.main([*argv, "DATASETS.TRAIN", '("coco_2017_train",)'])
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(KeyError, match="no_such_set"):
+        train_net_video.main([*argv, "DATASETS.TRAIN", '("no_such_set",)'])
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
         train_net_video.main(["--eval-only", "--time-parallel", *argv])
 
 
 def test_eval_path_runs_without_jax_cv2_or_pil(tmp_path):
     """With jax, s2d_tpu, yaml, cv2 and PIL blocked on import, the port
-    evaluates a dataset on the CPU from injected frames and the ablation
-    modules import; the RLE library it loads is its own build, never the JAX
-    package's."""
+    evaluates a dataset on the CPU from injected frames, reads a JPEG as cv2
+    reads it, and the ablation modules import; the RLE library it loads is
+    its own build, never the JAX package's."""
+    import cv2
+
     json_path = write_ytvis(tmp_path, lengths=(2,), frames=False)
+    jpg = tmp_path / "frame.jpg"
+    cv2.imwrite(str(jpg), np.random.RandomState(0).randint(0, 256, (24, 40, 3), np.uint8))
+    np.save(tmp_path / "cv2.npy", cv2.imread(str(jpg), cv2.IMREAD_COLOR)[..., ::-1])
     code = (
         "import sys\n"
         "class Block:\n"
@@ -433,12 +441,8 @@ def test_eval_path_runs_without_jax_cv2_or_pil(tmp_path):
         f"m = evaluate_dataset(p, 'blocked', output_dir={str(tmp_path / 'out')!r},\n"
         "                     mapper=lambda r: {'image': frames})\n"
         "assert 'AP' in m and 'stage_s/rle_encode' in m, m\n"
-        "try:\n"
-        "    mapper.load_image_robust('frame.jpg')\n"
-        "except ImportError as e:\n"
-        "    assert 'cv2' in str(e) and 'PIL' in str(e)\n"
-        "else:\n"
-        "    raise AssertionError('reading a frame without cv2 or PIL must raise')\n"
+        f"img = mapper.load_image_robust({str(jpg)!r})  # the port's own JPEG codec\n"
+        f"assert (img == np.load({str(tmp_path / 'cv2.npy')!r})).all()\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert 'build/s2d_tpu_torch/librle_ops_' in maps, 'the port RLE library is not loaded'\n"
         "assert 's2d_tpu/native' not in maps\n"

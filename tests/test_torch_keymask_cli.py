@@ -9,8 +9,8 @@ equal dataset.json and candidate PNGs of equal pixels. Then what the JAX
 tool also does: skip-if-exists, --job-id/--videos-per-job, a broken video
 counted as failed; the CoTracker backend with an upstream-shaped
 checkpoint; no silent CPU run without a card; and the import rule: with
-jax, s2d_tpu, sklearn, yaml, cv2 and PIL blocked the port runs a PNG tree
-and names cv2/PIL for a JPEG one.
+jax, s2d_tpu, sklearn, yaml, cv2 and PIL blocked the port runs the whole
+tree, its JPEG video on the port's own codec.
 
 Video ids are `abs(hash(name)) % 10**8`, as in the JAX tool: equal within
 this process, not across processes."""
@@ -231,7 +231,6 @@ def test_runs_without_jax_sklearn_cv2_or_pil(tree, tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "1 ok, 1 failed" in proc.stdout  # the PNG video; the JPEG one needs cv2 or PIL
-    assert "FAILED vid0" in proc.stderr and "cv2" in proc.stderr and "PIL" in proc.stderr
+    assert "2 ok, 0 failed" in proc.stdout  # the JPEG video too, on the port's own codec
     assert [v["file_names"][0] for v in _json(tmp_path / "out" / "dataset.json")["videos"]] == [
-        "vid1/00000.png"]
+        "vid0/00000.jpg", "vid1/00000.png"]

@@ -254,14 +254,22 @@ def test_eval_only_checks_expected_results(datasets, tmp_path, capsys, monkeypat
 
 
 @pytest.mark.parametrize("flags,opts,match", [
-    (["--model-parallel", "2"], [], "queue 1, item 7"),
-    (["--time-parallel"], [], "queue 1, item 7"),
-    ([], ["DATASETS.TRAIN", '("coco_2017_train_pseudo",)'], "COCO"),
+    (["--model-parallel", "2"], [], "queue 1, item 1"),
+    (["--time-parallel"], [], "queue 1, item 1"),
 ])
 def test_what_is_not_ported_raises(datasets, tmp_path, flags, opts, match):
     with pytest.raises(NotImplementedError, match=match):
         train_net_video.main([*flags, "--device", "cpu", *TINY_OPTS, "OUTPUT_DIR", str(tmp_path),
                               *opts])
+
+
+def test_an_unknown_train_set_raises(datasets, tmp_path):
+    """A DATASETS.TRAIN name that is neither a YTVIS nor a COCO set raises
+    KeyError, as in JAX (a COCO set trains as pseudo-clips:
+    tests/test_torch_pseudo_clips.py)."""
+    with pytest.raises(KeyError, match="no_such_set"):
+        train_net_video.main(["--device", "cpu", *TINY_OPTS, "OUTPUT_DIR", str(tmp_path),
+                              "DATASETS.TRAIN", '("no_such_set",)'])
 
 
 def test_more_than_one_process_raises(monkeypatch, tmp_path):

@@ -333,13 +333,17 @@ def test_distillation_nms_matches_jax():
 
 
 def test_polygons_without_cv2_raise(monkeypatch):
-    """A polygon segmentation needs cv2's fill; without cv2 (the card's
-    machine) it raises an ImportError that says so, instead of failing in a
-    loader thread with a bare module error."""
+    """A polygon segmentation no longer needs cv2: without it (the card's
+    machine) the port's native fill gives cv2.fillPoly's mask, and nothing
+    raises."""
     import sys
+
+    import cv2
 
     from s2d_tpu_torch.data import rle
 
+    poly = [[1.0, 1.0, 6.0, 1.0, 6.0, 6.0]]
+    ref = np.zeros((8, 8), np.uint8)
+    cv2.fillPoly(ref, [np.asarray(poly[0], np.int32).reshape(-1, 2)], 1)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="needs cv2"):
-        rle.polygons_to_mask([[1.0, 1.0, 6.0, 1.0, 6.0, 6.0]], 8, 8)
+    np.testing.assert_array_equal(rle.polygons_to_mask(poly, 8, 8), ref.astype(bool))
