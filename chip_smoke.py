@@ -191,6 +191,26 @@
    4096) against its plain loop on seeded boxes and a sparse IoU, exactly,
    with its ms and byte bound. The parent side of --compare skips this
    phase.
+17. trains and evaluates in several processes (`parallel/dist.py`; see
+   `ddp_step_check`, `ddp_cli_path`): (a) phase 8's seeded state and batch,
+   one KD step in one process (B = 2), then the same step in 2 ranks that
+   share this card over gloo (CUDA tensors; NCCL takes one rank a card),
+   one clip each, with the one-process step's hard decisions, dropout and
+   criterion draws replayed: the summed, clipped gradients within
+   DDP_GRAD_RTOL (1e-3) of the one-process step's in the 2-norm, the losses
+   within rtol 1e-4, the ranks' parameters bit-identical after the step,
+   K1/K2/K5 launches in each rank; then phase 10's eval set in the two
+   ranks' shards, merged by rank 0 (K1/K3/K4 per video), whose results.json
+   equals one process's video for video; (b) the CLI under `python -m
+   torch.distributed.run --nproc-per-node N` (N = the cards here; NCCL for
+   N >= 2) over a YTVIS set of JPEG files at 360x640: 2 steps with a
+   checkpoint, --resume to 3, --eval-only; one metrics.json with each
+   iteration once and one checkpoint set (rank 0's), the eval's
+   results.json; with N >= 2 the merged results.json against one
+   process's; (c) the gradient bucket's bytes and, with N >= 2, one NCCL
+   all-reduce of it and the N-rank step against one process's at the same
+   global batch. --ddp-only runs the build and this phase alone. The parent
+   side of --compare skips this phase.
 With --profile, one more inference clip and one more train step run under
 torch.profiler: device time per stage, the top kernels and the device's idle
 share. Run from the root of another checkout of the package (with
@@ -278,6 +298,17 @@ REAL_VIDEOS, REAL_FRAMES, REAL_QUALITY = 2, 8, 90
 REAL_COCO = "chip_smoke_coco_jpeg"
 REAL_KEYMASK_FRAMES = 24
 REAL_NMS_SIZES = (4097, 8192)  # K4 past one walk block of 4096
+# phase 17: training and evaluating in several processes. (a) ranks sharing
+# one card (gloo over CUDA tensors: NCCL takes one rank a device), each on
+# its part of phase 8's batch; (b) the CLI under torchrun, a rank a card
+DDP_WORLD = 2
+# (a): |g_ranks - g_one|_2 / |g_one|_2 over every clipped gradient, the hard
+# decisions and the draws replayed: two f32 paths that differ only in the
+# batch size some kernels sum over (cuDNN's and cuBLAS's choices)
+DDP_GRAD_RTOL = 1e-3
+DDP_SEED = SEED + 17
+DDP_FRAME_HW = (360, 640)  # (b): the JPEG frames of its YTVIS train and valid sets
+DDP_TRAIN_VIDEOS, DDP_LENGTH, DDP_ITERS = 4, 6, (2, 3)
 # phase 13: keymask discovery's synthetic set (videos, frames a video,
 # objects a video), the CLI's grid, and a group's least share of an
 # object's frames at mask IoU >= 0.5
@@ -1785,8 +1816,8 @@ def train_cli_path(dev, class_scale, opts=(), frame_hw=OUT_SIZE) -> dict:
     own_make, own_eval = trainer.make_train_step, evaluator.evaluate_dataset
     own_restore = ckpt_io.restore_checkpoint
 
-    def make_train_step(cfg_, kernels=True):
-        step_fn = own_make(cfg_, kernels)
+    def make_train_step(cfg_, kernels=True, group=None):
+        step_fn = own_make(cfg_, kernels, group)
 
         def step(state, *args, **kwargs):
             before = read_counts(counters)
@@ -1930,8 +1961,8 @@ def train_options_path(dev, class_scale, opts=(), frame_hw=OUT_SIZE) -> dict:
     steps, validity = [], []
     own_make, own_nms = trainer.make_train_step, trainer.distillation_nms
 
-    def make_train_step(cfg_, kernels=True):
-        step_fn = own_make(cfg_, kernels)
+    def make_train_step(cfg_, kernels=True, group=None):
+        step_fn = own_make(cfg_, kernels, group)
 
         def step(state, images, masks, *args, **kwargs):
             before = read_counts(counters)
@@ -2907,8 +2938,8 @@ def pseudo_clip_train_path(dev, root: Path, name: str, opts=()) -> dict:
     cfg = load_config_tree(KD_CONFIG, [*opts, "SOLVER.IMS_PER_BATCH", "4"])
     counters, steps, own_make = train_counters(), [], trainer.make_train_step
 
-    def make_train_step(cfg_, kernels=True):
-        step_fn = own_make(cfg_, kernels)
+    def make_train_step(cfg_, kernels=True, group=None):
+        step_fn = own_make(cfg_, kernels, group)
 
         def step(state, *a, **kw):
             before = read_counts(counters)
@@ -3142,6 +3173,442 @@ COMPARE_LINES = ("inference path:", "train path:", "profiled", "device ms per sp
                  "CutLER", "  K4 box NMS", "  K4 launches", "chip_smoke:")
 
 
+def by_clip(value, rank: int, world: int):
+    """Rank `rank`'s block of the clips of a batch-leading tensor (or tuple)."""
+    if isinstance(value, (tuple, list)):
+        return type(value)(by_clip(v, rank, world) for v in value)
+    n = value.shape[0]
+    return value[rank * n // world:(rank + 1) * n // world]
+
+
+def by_problem(value, rank: int, world: int, clips: int):
+    """Rank `rank`'s rows of the auction's assignments: (sets x layers x
+    clips, N), the clips fastest."""
+    rows = value.reshape(-1, clips, value.shape[-1])
+    return by_clip(rows.transpose(0, 1), rank, world).transpose(0, 1).reshape(-1, value.shape[-1])
+
+
+def ddp_tapes(state):
+    """The hard decisions of a KD step and the encoder's dropout draws, each
+    a (Tape, owner) pair, in a fixed order."""
+    from s2d_tpu_torch.losses import criterion
+    from s2d_tpu_torch.train import trainer
+
+    layers = [m for m in state.student.modules() if hasattr(type(m), "draw_dropout")]
+    return ([(Tape("attention_mask"), state.teacher.predictor),
+             (Tape("attention_mask"), state.student.predictor),
+             (Tape("prepare_distillation_targets"), trainer),
+             (Tape("hungarian_assign"), criterion)]
+            + [(Tape("draw_dropout"), layer) for layer in layers])
+
+
+def to_device(value, dev):
+    if isinstance(value, (tuple, list)):
+        return type(value)(to_device(v, dev) for v in value)
+    if isinstance(value, dict):
+        return {k: to_device(v, dev) for k, v in value.items()}
+    return value.to(dev) if torch.is_tensor(value) else value
+
+
+def params_digest(params) -> str:
+    digest = hashlib.sha256()
+    for p in params:
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def ddp_rank(rank: int, job_path: str, port: int) -> None:
+    """Phase 17 (a)'s rank `rank`: a process group over gloo with the other
+    ranks on the same card; phase 8's seeded state (rank 0's broadcast),
+    one KD step on this rank's clips with the one-process step's decisions
+    and draws replayed, then this rank's shard of phase 10's eval set
+    merged by rank 0. Writes what it found as JSON beside the job."""
+    from s2d_tpu_torch.config import from_s2d_config, load_config_tree
+    from s2d_tpu_torch.data import ytvis
+    from s2d_tpu_torch.demo_video import VideoPredictor, set_full_f32
+    from s2d_tpu_torch.ops import masked_attention_cuda, nms
+    from s2d_tpu_torch.parallel import dist
+    from s2d_tpu_torch.train import trainer
+    from s2d_tpu_torch.train_net_video import evaluate_sharded
+
+    job = torch.load(job_path, weights_only=False)
+    world = job["world"]
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    group, dev = dist.init(job["device"], backend="gloo")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda: None
+    found = {"rank": rank}
+    try:
+        set_full_f32()
+        cfg = load_config_tree(job["config"], job["opts"])
+        state = new_train_state(cfg, dev, class_scale=job["class_scale"])
+        found["seeded_state_same"] = params_digest(state.optimizer.params) == job["params_digest"]
+        group.broadcast_(trainer.state_tensors(state))
+        step_fn = trainer.make_train_step(cfg, group=group)
+        tapes = ddp_tapes(state)
+        for (tape, owner), values in zip(tapes, job["tapes"][rank]):
+            tape.values = to_device(values, dev)
+            tape.replay(owner, force=True)
+        taken = Tape("step", keep=lambda args, out: list(args[0])).record(state.optimizer)
+        counters = train_counters()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        batch = to_device(job["batch"][rank], dev)
+        gen = torch.Generator(device=dev).manual_seed(DDP_SEED + rank)
+        try:
+            sync()
+            start = time.perf_counter()
+            _, metrics = step_fn(state, *batch, generator=gen, draws=to_device(job["draws"][rank], dev))
+            sync()
+            found["step_ms"] = (time.perf_counter() - start) * 1e3
+        finally:
+            for tape, _ in tapes + [(taken, None)]:
+                tape.stop()
+        found["launches"] = read_counts(counters)
+        found["differ"] = [tape.differ for tape, _ in tapes[:4]]  # the draws are replayed too
+        found["metrics"] = {k: float(v) for k, v in metrics.items()}
+        clipped = state.optimizer.clip_gradients(taken.values[0])
+        ref = job["ref_clipped"]
+        num = sum(float(((g.double() - r.to(dev).double()) ** 2).sum()) for g, r in zip(clipped, ref))
+        den = sum(float((r.double() ** 2).sum()) for r in ref)
+        found["grad_rel_err"] = (num / den) ** 0.5
+        found["bucket_bytes"] = sum(g.numel() * g.element_size() for g in clipped)
+        found["after_digest"] = params_digest(state.optimizer.params)
+        del state, step_fn, clipped, batch
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        ytvis.register_ytvis(EVAL_DATASET, job["eval_json"], str(Path(job["eval_json"]).parent),
+                             class_agnostic=True)
+        frames = job["eval_frames"]
+        predictor = VideoPredictor(from_s2d_config(load_config_tree(EVAL_CONFIG, job["eval_opts"])),
+                                   seed=SEED, device=dev)
+        eval_counters = {"k1_msda": train_counters()["k1_msda"],
+                         "k3_flash": (masked_attention_cuda, "LAUNCHES"), "k4_nms": (nms, "LAUNCHES")}
+        for mod, attr in eval_counters.values():
+            setattr(mod, attr, 0)
+        merged = evaluate_sharded(predictor, EVAL_DATASET, job["eval_out"], group,
+                                  mapper=lambda record: {"image": frames[record["video_id"]]})
+        found["eval_launches"] = read_counts(eval_counters)
+        found["eval_metrics"] = merged
+    finally:
+        dist.shutdown()
+    Path(job_path).with_name(f"rank{rank}.json").write_text(json.dumps(found))
+
+
+def ddp_step_check(dev, batch, class_scale, opts=(), eval_opts=()) -> dict:
+    """Phase 17 (a): the KD step of phase 8's seeded state and batch in one
+    process (B = 2), then in DDP_WORLD ranks on this card (gloo), each on
+    its clips, with the one-process step's hard decisions, dropout draws and
+    criterion draws replayed; the ranks' summed, clipped gradients against
+    the one-process step's (DDP_GRAD_RTOL in the 2-norm), their losses
+    (rtol 1e-4), their parameters after the step bit-identical; then phase
+    10's eval set in shards, merged by rank 0, against one process's
+    results.json. Returns the ranks' kernel launches and the gradient
+    bucket's bytes. `opts` and `eval_opts` (config overrides of the KD and
+    the eval config) are for a rehearsal off the card."""
+    from s2d_tpu_torch.config import from_s2d_config, load_config_tree
+    from s2d_tpu_torch.demo_video import VideoPredictor
+    from s2d_tpu_torch.evaluation.evaluator import evaluate_dataset
+    from s2d_tpu_torch.losses.criterion import draw_bernoulli, draw_pool
+    from s2d_tpu_torch.train import trainer
+
+    started = time.perf_counter()
+    root = Path("build") / "chip_smoke_ddp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    world = DDP_WORLD
+    cfg = load_config_tree(KD_CONFIG, opts)
+    clips, slots, t = batch[0].shape[0], batch[2].shape[1], batch[0].shape[1]
+    queries = cfg.model.mask_former.num_object_queries
+    state = new_train_state(cfg, dev, class_scale=class_scale)
+    digest = params_digest(state.optimizer.params)
+    step_fn = trainer.make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(DDP_SEED)
+    crit = step_fn.crit_cfg
+    draws = {"pool": draw_pool(crit, gen, dev),
+             "bern": {r: draw_bernoulli(crit, r, gen, dev) for r in (clips * slots * t,
+                                                                     clips * queries * t)}}
+    tapes = ddp_tapes(state)
+    for tape, owner in tapes:
+        tape.record(owner)
+    taken = Tape("step", keep=lambda args, out: [g.detach().clone() for g in args[0]]).record(
+        state.optimizer)
+    try:
+        _, metrics = step_fn(state, *batch, generator=gen, draws=draws)
+    finally:
+        for tape, _ in tapes + [(taken, None)]:
+            tape.stop()
+    ref_metrics = {k: float(v) for k, v in metrics.items()}
+    ref_clipped = [g.cpu() for g in state.optimizer.clip_gradients(taken.values[0])]
+    cpu = lambda v: to_device(v, torch.device("cpu"))  # noqa: E731
+    ranks = range(world)
+
+    def share(tape, rank):
+        if tape.name == "hungarian_assign":
+            return [by_problem(v, rank, world, clips) for v in tape.values]
+        return [by_clip(v, rank, world) for v in tape.values]
+
+    eval_frames = write_eval_set(root / "eval", np.random.RandomState(SEED + 2))
+    job = {"config": KD_CONFIG, "opts": list(opts), "eval_opts": list(eval_opts),
+           "device": dev.type, "class_scale": class_scale, "world": world,
+           "params_digest": digest,
+           "batch": [cpu(by_clip(list(batch), r, world)) for r in ranks],
+           "draws": [cpu({"pool": draws["pool"],
+                          "bern": {n // world: by_clip(b, r, world)
+                                   for n, b in draws["bern"].items()}}) for r in ranks],
+           "tapes": [[cpu(share(tape, r)) for tape, _ in tapes] for r in ranks],
+           "ref_clipped": ref_clipped, "eval_json": str(root / "eval" / "valid.json"),
+           "eval_frames": eval_frames, "eval_out": str(root / "eval_ranks")}
+    job_path = root / "job.pt"
+    torch.save(job, job_path)
+    del state, step_fn, taken, tapes, job, draws
+    torch.cuda.empty_cache()
+    print(f"DDP (a): the one-process step (B = {clips}) and its decisions recorded, "
+          f"{time.perf_counter() - started:.1f} s")
+
+    import socket
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    start = time.perf_counter()
+    mp.start_processes(ddp_rank, args=(str(job_path), port), nprocs=world, start_method="spawn")
+    ranks_s = time.perf_counter() - start
+    found = [json.loads((root / f"rank{r}.json").read_text()) for r in ranks]
+
+    predictor = VideoPredictor(from_s2d_config(load_config_tree(EVAL_CONFIG, eval_opts)), seed=SEED,
+                               device=dev)
+    one = evaluate_dataset(predictor, EVAL_DATASET, output_dir=str(root / "eval_one"),
+                           mapper=lambda record: {"image": eval_frames[record["video_id"]]})
+    del predictor
+    by_video = lambda path: sorted(json.loads(path.read_text()), key=lambda r: r["video_id"])  # noqa: E731
+    merged_same = by_video(root / "eval_ranks" / "results.json") == by_video(
+        root / "eval_one" / "results.json")
+
+    failures = []
+    expected = expected_launches(cfg)
+    rank_launches = [{k: f["launches"][k] for k in expected} for f in found]
+    for f, launched in zip(found, rank_launches):
+        if launched != expected:
+            failures.append(f"rank {f['rank']}: launches {launched}, expected {expected}")
+        if not f["seeded_state_same"]:
+            failures.append(f"rank {f['rank']}: its seeded state differs from the one process's")
+        if any(f["differ"]):
+            print(f"  rank {f['rank']}: replayed decisions it would have made otherwise (teacher "
+                  f"and student attention masks, distillation targets, assignments) {f['differ']}")
+        for key, value in f["metrics"].items():
+            if not np.isclose(value, ref_metrics[key], rtol=1e-4, atol=0.0):
+                failures.append(f"rank {f['rank']}: {key} {value} vs one process {ref_metrics[key]}")
+    if len({f["after_digest"] for f in found}) != 1:
+        failures.append("the ranks' parameters differ after the step")
+    err = found[0]["grad_rel_err"]
+    if not err <= DDP_GRAD_RTOL:
+        failures.append(f"clipped gradients: |dg|/|g| {err:.3e} beyond {DDP_GRAD_RTOL}")
+    eval_expected = {k: v * len(EVAL_LENGTHS) for k, v in PER_CLIP.items()}
+    eval_launched = {k: sum(f["eval_launches"][k] for f in found) for k in PER_CLIP}
+    if eval_launched != eval_expected:
+        failures.append(f"sharded eval launches {eval_launched}, expected {eval_expected}")
+    merged = found[0]["eval_metrics"]
+    if not merged or any(not np.isclose(merged[k], one[k], equal_nan=True) for k in METRIC_KEYS):
+        failures.append(f"merged eval metrics {merged} vs one process's")
+    if not merged_same:
+        failures.append("the merged results.json differs from one process's")
+    print(f"DDP (a): {world} ranks on one card (gloo over CUDA tensors), B = {clips // world} "
+          f"clip(s) each against one process's B = {clips}: clipped gradients |dg|/|g| {err:.3e} "
+          f"(bound {DDP_GRAD_RTOL}), losses within rtol 1e-4 "
+          f"({', '.join(f'{k} {v:.5f}' for k, v in found[0]['metrics'].items() if k != 'grad_finite')}), "
+          f"parameters after the step {'bit-identical' if len({f['after_digest'] for f in found}) == 1 else 'DIFFERENT'}; "
+          f"launches per rank {rank_launches}; rank step ms "
+          f"{', '.join(f'{f['step_ms']:.1f}' for f in found)} (two ranks sharing the card); "
+          f"gradient bucket {found[0]['bucket_bytes']} bytes; ranks {ranks_s:.1f} s (wall)")
+    print(f"  sharded eval: launches per rank {[f['eval_launches'] for f in found]}, merged by rank 0: "
+          f"results.json {'equal' if merged_same else 'DIFFERENT'} to one process's video for video, "
+          + ", ".join(f"{k} {one[k]:.4f}" for k in METRIC_KEYS[:3]))
+    if failures:
+        raise AssertionError("DDP (a): " + "; ".join(failures))
+    launches = {k: sum(f["launches"].get(k, 0) + f["eval_launches"].get(k, 0) for f in found)
+                for k in ("k1_msda", "k2_msda_bwd", "k3_flash", "k4_nms", "k5_auction")}
+    return {"launches": launches, "bucket_bytes": found[0]["bucket_bytes"]}
+
+
+def write_jpeg_ytvis(root: Path, rng, videos: int, length: int, hw=DDP_FRAME_HW) -> None:
+    """A YTVIS split in the builtin layout (`root/instances.json`,
+    `root/JPEGImages/v<id>/*.jpg`): `videos` videos of `length` JPEG frames
+    of noise, each with 3 drifting ellipses annotated on every frame."""
+    from s2d_tpu_torch.data import rle
+    from s2d_tpu_torch.data.jpeg import write_jpeg
+
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    entries, annotations = [], []
+    for vid in range(1, videos + 1):
+        files = [f"v{vid}/{i:05d}.jpg" for i in range(length)]
+        (root / "JPEGImages" / f"v{vid}").mkdir(parents=True, exist_ok=True)
+        for name in files:
+            write_jpeg(str(root / "JPEGImages" / name),
+                       rng.randint(0, 256, (h, w, 3), dtype=np.uint8), quality=REAL_QUALITY)
+        entries.append({"id": vid, "height": h, "width": w, "length": length, "file_names": files})
+        for j in range(3):
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            ry, rx = rng.uniform(0.05, 0.25) * h, rng.uniform(0.05, 0.25) * w
+            vy, vx = rng.uniform(-10, 10, 2)
+            segs = [rle.encode(((yy - cy - vy * i) / ry) ** 2 + ((xx - cx - vx * i) / rx) ** 2 < 1)
+                    for i in range(length)]
+            annotations.append({"id": 100 * vid + j, "video_id": vid, "category_id": 1,
+                                "segmentations": segs, "iscrowd": 0})
+    (root / "instances.json").write_text(json.dumps(
+        {"videos": entries, "annotations": annotations, "categories": [{"id": 1, "name": "fg"}]}))
+
+
+def launch(argv, log: Path, ranks: int, datasets: Path, timeout: int = 900) -> str:
+    """`argv` (a module and its arguments) under torchrun with `ranks`
+    processes on this node (or one plain process for ranks = 0); returns
+    its standard output, also written to `log`."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    head = ([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(ranks),
+             "--master-addr", "localhost", "--master-port", str(port)] if ranks
+            else [sys.executable])
+    # one host thread a process, as torchrun gives each rank: a plain
+    # process then sums on the host in the ranks' order
+    env = {**os.environ, "S2D_DATASETS": str(datasets.resolve()), "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join([os.getcwd(), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run([*head, *argv], env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(argv[:3])}... exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def allreduce_timing(nbytes: int) -> None:
+    """Under torchrun (`--allreduce-bytes`): one NCCL all-reduce of a float32
+    bucket of `nbytes`, the median of 20 after 5 unrecorded, by CUDA events;
+    rank 0 prints it as JSON."""
+    from s2d_tpu_torch.parallel import dist
+
+    group, dev = dist.init("cuda")
+    try:
+        bucket = torch.ones(nbytes // 4, device=dev)
+        times = []
+        for i in range(25):
+            begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            begin.record()
+            torch.distributed.all_reduce(bucket)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 5:
+                times.append(begin.elapsed_time(end))
+        if group.is_main:
+            print(json.dumps({"allreduce_ms": float(np.median(times)), "bytes": nbytes,
+                              "ranks": group.size, "backend": group.backend}))
+    finally:
+        dist.shutdown()
+
+
+def ddp_cli_path(bucket_bytes: int, cards=None, device="cuda", opts=()) -> None:
+    """Phase 17 (b) and (c): the video CLI under `python -m
+    torch.distributed.run --nproc-per-node N`, N = the cards here (NCCL when
+    N >= 2), on the KD config at full width with seeded weights over a
+    YTVIS set of JPEG files (DDP_TRAIN_VIDEOS videos of DDP_LENGTH frames at
+    DDP_FRAME_HW, the valid split one video a rank or 4): DDP_ITERS[0] steps
+    with a checkpoint, --resume to DDP_ITERS[1], then --eval-only. Checks
+    one metrics.json with each iteration once (rank 0's), the checkpoints,
+    the eval's results.json and metrics; with N >= 2, results.json against
+    one process's video for video, one NCCL all-reduce of the gradient
+    bucket and the N-rank step against one process's at the same global
+    batch. `cards`, `device` ("cpu": gloo, no all-reduce timing) and `opts`
+    (config overrides) are for a rehearsal off the card."""
+    cards = torch.cuda.device_count() if cards is None else cards
+    root = Path("build") / "chip_smoke_ddp" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    datasets = root / "datasets"
+    rng = np.random.RandomState(SEED + 9)
+    start = time.perf_counter()
+    write_jpeg_ytvis(datasets / "ytvis_2021" / "train", rng, DDP_TRAIN_VIDEOS, DDP_LENGTH)
+    write_jpeg_ytvis(datasets / "ytvis_2021" / "valid", rng, max(4, cards), DDP_LENGTH - 1)
+    print(f"DDP (b): JPEG YTVIS sets written in {time.perf_counter() - start:.1f} s (host)")
+    batch = 4 if 4 % cards == 0 else cards
+    module = ["-m", "s2d_tpu_torch.train_net_video", "--config-file", KD_CONFIG, "--device", device]
+    sets = ["DATASETS.TRAIN", '("ytvis_2021_train",)', "DATASETS.TEST", '("ytvis_2021_valid",)',
+            "MODEL.WEIGHTS", '""', *opts]
+    out = root / "out"
+    train_opts = [*sets, "SOLVER.IMS_PER_BATCH", str(batch), "SOLVER.CHECKPOINT_PERIOD",
+                  str(DDP_ITERS[0]), "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR", str(out)]
+    walls = []
+    for i, iters in enumerate(DDP_ITERS):
+        start = time.perf_counter()
+        launch([*module, *(["--resume"] if i else []), *train_opts, "SOLVER.MAX_ITER", str(iters)],
+               root / f"train{i}.log", cards, datasets)
+        walls.append(time.perf_counter() - start)
+    start = time.perf_counter()
+    evaluated = launch([*module, "--eval-only", *sets, "OUTPUT_DIR", str(root / "eval_ranks")],
+                       root / "eval.log", cards, datasets)
+    walls.append(time.perf_counter() - start)
+
+    lines = [json.loads(x) for x in (out / "metrics.json").read_text().splitlines()]
+    iterations = [x["iteration"] for x in lines if "total_loss" in x]
+    failures = []
+    if iterations != list(range(DDP_ITERS[-1])):
+        failures.append(f"metrics.json iterations {iterations}: each once, rank 0's alone")
+    if any(x["grad_finite"] != 1.0 or not np.isfinite(x["total_loss"]) for x in lines):
+        failures.append("a non-finite step")
+    saved = sorted(p.name for p in (out / "checkpoints").iterdir())
+    if saved != [str(n) for n in DDP_ITERS]:
+        failures.append(f"checkpoints {saved}")
+    if len([p for p in out.iterdir() if p.name.startswith("events.out")]) > len(DDP_ITERS):
+        failures.append("more than one tensorboard file a run")
+    results = json.loads((root / "eval_ranks" / "results.json").read_text())
+    printed = [x for x in evaluated.splitlines() if x.startswith("[ytvis_2021_valid]")]
+    if len(printed) != 1:
+        failures.append(f"{len(printed)} metric lines from the eval's ranks, not rank 0's one")
+    step_ms = [x["time"] * 1e3 for x in lines if "total_loss" in x]
+    print(f"DDP (b): the CLI in {cards} process(es) under torchrun "
+          f"({('NCCL' if device == 'cuda' else 'gloo') if cards > 1 else 'one process: no process group'}), "
+          f"IMS_PER_BATCH {batch} "
+          f"({batch // cards} a rank): metrics.json iterations {iterations} (rank 0's), checkpoints "
+          f"{saved}, step ms {', '.join(f'{x:.1f}' for x in step_ms)} (metrics.json time); "
+          f"eval: {len(results)} results, {printed[0] if printed else 'no metrics'}; "
+          f"runs {', '.join(f'{w:.1f}' for w in walls)} s (wall)")
+    print(f"DDP (c): gradient bucket {bucket_bytes} bytes ({bucket_bytes / 2**20:.1f} MiB), "
+          f"one all-reduce of it a step")
+    if cards < 2:
+        print("DDP (b): one card here: the multi-card merge and NCCL were not exercised on "
+              "this machine")
+    else:
+        launch([*module, "--eval-only", *sets, "OUTPUT_DIR", str(root / "eval_one")],
+               root / "eval_one.log", 0, datasets)
+        by_video = lambda rs: sorted(rs, key=lambda r: r["video_id"])  # noqa: E731
+        one = json.loads((root / "eval_one" / "results.json").read_text())
+        if by_video(one) != by_video(results):
+            failures.append("the merged results.json differs from one process's")
+        allreduce = {"allreduce_ms": float("nan")}
+        if device == "cuda":
+            timing = launch([os.path.abspath(__file__), "--allreduce-bytes", str(bucket_bytes)],
+                            root / "allreduce.log", cards, datasets)
+            allreduce = json.loads([x for x in timing.splitlines() if x.startswith("{")][-1])
+        single = root / "one_process"
+        launch([*module, *sets, "SOLVER.IMS_PER_BATCH", str(batch), "SOLVER.MAX_ITER", "2",
+                "SOLVER.CHECKPOINT_PERIOD", "100", "TEST.EVAL_PERIOD", "0", "OUTPUT_DIR",
+                str(single)], root / "one_process.log", 0, datasets)
+        one_ms = [json.loads(x)["time"] * 1e3 for x in (single / "metrics.json").read_text().splitlines()
+                  if "total_loss" in x]
+        print(f"DDP (b): results.json of the {cards} ranks {'equal' if by_video(one) == by_video(results) else 'DIFFERENT'} "
+              f"to one process's, video for video")
+        print(f"DDP (c): one NCCL all-reduce of {bucket_bytes} bytes over {cards} cards: "
+              f"{allreduce['allreduce_ms']:.3f} ms (median of 20, CUDA events); the step at "
+              f"IMS_PER_BATCH {batch}: {step_ms[1]:.1f} ms in {cards} ranks against {one_ms[1]:.1f} ms "
+              f"in one process (the second step of a run, metrics.json time); {card_line()}")
+    if failures:
+        raise AssertionError("DDP (b): " + "; ".join(failures))
+
+
 def compare_checkouts(parent: Path, profile: bool) -> None:
     """Runs this script in the checkout `parent` (this file copied there
     first, so both sides run the same phases on the same inputs) and in
@@ -3195,10 +3662,18 @@ def main(argv=None) -> int:
     parser.add_argument("--compare", type=Path, metavar="PARENT",
                         help="instead: run this script in the checkout PARENT and in this one, "
                              "in turns parent, change, change, parent, and compare them")
+    parser.add_argument("--ddp-only", action="store_true",
+                        help="instead: build the kernels and run phase 17 alone (training and "
+                             "evaluating in several processes)")
+    parser.add_argument("--allreduce-bytes", type=int, default=0,
+                        help="(phase 17 runs this under torchrun) time one NCCL all-reduce")
     args = parser.parse_args(argv)
     started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
+    if args.allreduce_bytes:
+        allreduce_timing(args.allreduce_bytes)
+        return 0
     if args.compare:
         print(card_line())
         compare_checkouts(args.compare, args.profile)
@@ -3222,6 +3697,18 @@ def main(argv=None) -> int:
     _build.library()
     build_s = time.perf_counter() - start
     print(f"build: {build_s:.2f} s ({_build._library_path().name})")
+
+    if args.ddp_only:
+        train_cfg = load_config_tree(KD_CONFIG)
+        batch = train_batch(train_cfg, dev)
+        class_scale = class_head_scale(train_cfg, new_train_state(train_cfg, dev), batch[0])
+        torch.cuda.empty_cache()
+        ddp = ddp_step_check(dev, batch, class_scale)
+        ddp_cli_path(ddp["bucket_bytes"])
+        print(f"chip_smoke --ddp-only: {time.perf_counter() - started:.1f} s; ddp launches "
+              f"{ddp['launches']}")
+        print(card)
+        return 0
 
     # 3. kernels against their plain versions
     record = {}
@@ -3320,22 +3807,33 @@ def main(argv=None) -> int:
     # 16. real inputs: JPEG files and polygon annotations through the CLIs, K4 past 4096
     real = real_inputs_path(dev, record) if not PARENT else {}
 
+    # 17. training and evaluating in several processes: ranks on this card, the CLI under torchrun
+    ddp = {}
+    if not PARENT:
+        start = time.perf_counter()
+        ddp = ddp_step_check(dev, train_batch(train_cfg, dev), class_scale)
+        ddp_cli_path(ddp["bucket_bytes"])
+        print(f"DDP phase: {time.perf_counter() - start:.1f} s")
+
     on_options = lambda key: {"kd_options": options[key]} if options else {}  # noqa: E731
     on_real = lambda key: {"real_inputs": real[key]} if real else {}  # noqa: E731
+    on_ddp = lambda key: {"ddp": ddp["launches"][key]} if ddp else {}  # noqa: E731
     by_path = {"k1_msda": {"inference": launches["k1_msda"], "train": train_launches["k1_msda"],
                            "eval": eval_launches["k1_msda"], "train_cli": cli_launches["k1_msda"],
-                           **on_options("k1_msda"), **on_real("k1_msda")},
+                           **on_options("k1_msda"), **on_real("k1_msda"), **on_ddp("k1_msda")},
                "k3_flash": {"inference": launches["k3_flash"], "eval": eval_launches["k3_flash"],
-                            "train_cli": cli_launches["k3_flash"], **on_real("k3_flash")},
+                            "train_cli": cli_launches["k3_flash"], **on_real("k3_flash"),
+                            **on_ddp("k3_flash")},
                "k4_nms": {"inference": launches["k4_nms"], "eval": eval_launches["k4_nms"],
                           "train_cli": cli_launches["k4_nms"], **on_options("k4_nms"),
-                          **({"cutler": cutler} if not PARENT else {}), **on_real("k4_nms")},
+                          **({"cutler": cutler} if not PARENT else {}), **on_real("k4_nms"),
+                          **on_ddp("k4_nms")},
                "k2_msda_bwd": {"train": train_launches["k2_msda_bwd"],
                                "train_cli": cli_launches["k2_msda_bwd"], **on_options("k2_msda_bwd"),
-                               **on_real("k2_msda_bwd")},
+                               **on_real("k2_msda_bwd"), **on_ddp("k2_msda_bwd")},
                "k5_auction": {"train": train_launches["k5_auction"],
                               "train_cli": cli_launches["k5_auction"], **on_options("k5_auction"),
-                              **on_real("k5_auction")},
+                              **on_real("k5_auction"), **on_ddp("k5_auction")},
                **{f"k6_{v}": {"ablation": n} for v, n in ablate_launches.items()}}
     for key, paths in by_path.items():
         if not all(paths.values()):

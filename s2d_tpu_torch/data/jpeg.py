@@ -3,14 +3,16 @@ neither cv2 nor PIL.
 
 `read_jpeg(path)` returns (H, W, 3) uint8 RGB equal to
 `cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]` (what the JAX mapper reads),
-the EXIF orientation applied as cv2 applies it. It reads baseline, extended
-sequential and progressive Huffman files of 8-bit samples with 1 or 3
-components and sampling factors up to 2x2, and damaged files as libjpeg
-reads them where cv2 still returns an image. It raises ValueError, naming
-the file and the reason, for arithmetic coding, lossless or hierarchical
-files, 12-bit samples and 4-component (CMYK, YCCK) files; OSError for a
-file cut in its headers and for a progressive file that lacks whole scans
-(libjpeg smooths those blocks; the port does not).
+the EXIF orientation applied as cv2 applies it. It reads baseline,
+extended sequential and progressive files, Huffman or arithmetic coded, and
+lossless files, of 8-bit samples with 1, 3 or 4 (CMYK, YCCK) components and
+any integral sampling ratio, and damaged files as libjpeg reads them where
+cv2 still returns an image (a progressive file cut before its last scans
+has its blocks smoothed as libjpeg smooths them). Where cv2 returns no image
+it raises: ValueError, naming the file and the reason, for the kinds it
+refuses (12- and 16-bit samples, hierarchical files, a DNL height, grey or
+arithmetic lossless files, fractional sampling ratios); OSError for a
+damaged file.
 
 `write_jpeg(path, rgb, quality=95, subsampling="420")` writes a baseline
 file (libjpeg's quality scaling of the Annex K tables, the standard Huffman

@@ -118,6 +118,25 @@ def score_results(
     return evaluate_vis(collect_gt(dicts), results, use_cats=False)
 
 
+def merge_and_score(group, dataset_name: str, output_dir: str,
+                    max_videos: Optional[int] = None) -> Optional[Dict[str, float]]:
+    """After every rank of `group` wrote its `results_shard<r>.json` into
+    `output_dir`: rank 0 merges them into `results.json` and scores them,
+    as `tools/train_net_video.py:158-182` (one barrier before, so that every
+    shard is on disk; one after, so that no rank writes the next dataset's
+    shards before rank 0 has read these). Returns the metrics on rank 0,
+    None on the others."""
+    group.barrier(f"eval:{dataset_name}")
+    metrics = None
+    if group.is_main:
+        results = merge_shard_results(output_dir, group.size)
+        with open(os.path.join(output_dir, "results.json"), "w") as f:
+            json.dump(results, f)
+        metrics = score_results(dataset_name, results, max_videos=max_videos)
+    group.barrier(f"eval-merged:{dataset_name}")
+    return metrics
+
+
 def _upload(frames: np.ndarray, frame_valid: np.ndarray, device: torch.device, stream):
     """Start the copy of a clip to the device. On a CUDA device the copy
     runs from pinned memory on `stream` and an event marks its end, which

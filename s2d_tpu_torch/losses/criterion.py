@@ -15,6 +15,12 @@ and, in `set_criterion_pair`, both criteria), then scored:
   * temporal DropLoss ("masks-only"): rows whose target is empty in a frame
     contribute nothing; num_masks = max(valid targets / world size, 1).
 
+Both normalizers (num_masks and loss_ce's weight sum) are over the batch.
+In a process group each rank scores its part of the global batch: given
+`reduce` (a sum over the ranks), the normalizers are the global batch's, so
+that the ranks' losses sum to the loss of the global batch and their
+gradients to its gradient, as JAX computes it over the global batch.
+
 With `point_sampling="lattice"` (MODEL.MASK_FORMER.POINT_SAMPLING) the
 pools are random-phase lattices instead (`ops/lattice.py`): the loss pool
 and the matcher's pool each an (Ly, Lx) lattice of about their nominal
@@ -191,19 +197,26 @@ def _loss_masks(
     return loss_mask, loss_dice
 
 
-def _loss_labels(pred_logits: torch.Tensor, assign: torch.Tensor, tgt_valid: torch.Tensor,
-                 cfg: CriterionConfig) -> torch.Tensor:
-    """Cross-entropy: queries matched to a valid target are class 0, the
-    others no-object (weight eos_coef)."""
+def _label_targets(pred_logits: torch.Tensor, assign: torch.Tensor, tgt_valid: torch.Tensor,
+                   cfg: CriterionConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(target class, weight) of each query: class 0 where matched to a
+    valid target (weight 1), else no-object (weight eos_coef)."""
     b, q, _ = pred_logits.shape
     k = cfg.num_classes
     matched = torch.zeros((b, q), dtype=torch.float32, device=pred_logits.device)
     matched.scatter_add_(1, assign.long(), tgt_valid.float())
     target_cls = torch.where(matched > 0, 0, k)
+    return target_cls, torch.where(target_cls == k, cfg.eos_coef, 1.0)
+
+
+def _loss_labels(pred_logits: torch.Tensor, assign: torch.Tensor, tgt_valid: torch.Tensor,
+                 cfg: CriterionConfig, weight_sum: torch.Tensor | None = None) -> torch.Tensor:
+    """Cross-entropy over the queries, normalized by `weight_sum` (the
+    global batch's) or this batch's sum of the weights."""
+    target_cls, weight = _label_targets(pred_logits, assign, tgt_valid, cfg)
     logp = torch.log_softmax(pred_logits.float(), dim=-1)
     nll = -logp.gather(-1, target_cls[..., None])[..., 0]
-    weight = torch.where(target_cls == k, cfg.eos_coef, 1.0)
-    return (nll * weight).sum() / weight.sum()
+    return (nll * weight).sum() / (weight.sum() if weight_sum is None else weight_sum)
 
 
 def _layer_outputs(outputs) -> List[Tuple[Optional[int], torch.Tensor, torch.Tensor]]:
@@ -314,7 +327,6 @@ def _criterion_costs_multi(
     states = []
     for (tgt_masks, tgt_valid, cfg), (pool_tgt, _), cost_list in zip(target_sets, per_set, costs):
         bsz, nsl, t = tgt_masks.shape[:3]
-        num_masks = torch.clamp(tgt_valid.sum().float() / cfg.world_size, min=1.0)
         stacked_cost = torch.stack(cost_list).reshape(n_layers * bsz, *cost_list[0].shape[1:])
         stacked_valid = tgt_valid.repeat(n_layers, 1)
         if cfg.masks_only:
@@ -341,22 +353,41 @@ def _criterion_costs_multi(
             "pool_tgt": pool_tgt,
             "bern_wts": bern_wts,
             "row_keep": row_keep,
-            "num_masks": num_masks,
         })
     return states
 
 
+def _batch_sums(state: Dict, assigns: torch.Tensor, cfg: CriterionConfig) -> torch.Tensor:
+    """(valid targets, the final layer's loss_ce weight sum) of this batch."""
+    _, weight = _label_targets(state["layers"][0][1], assigns[0], state["tgt_valid"], cfg)
+    return torch.stack([state["tgt_valid"].sum().float(), weight.sum()])
+
+
+def _normalized(states_assigns, reduce) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """(num_masks, loss_ce weight sum) of each (state, assigns, cfg), over
+    the global batch: this batch's sums summed over the ranks by `reduce`
+    (one call for all criteria), or this batch's alone."""
+    sums = torch.cat([_batch_sums(st, a, cfg) for st, a, cfg in states_assigns])
+    if reduce is not None:
+        sums = reduce(sums)
+    return [(torch.clamp(sums[2 * i] / cfg.world_size, min=1.0), sums[2 * i + 1])
+            for i, (_, _, cfg) in enumerate(states_assigns)]
+
+
 def _criterion_losses(state: Dict, assigns: torch.Tensor, cfg: CriterionConfig,
-                      compute_labels_loss: bool) -> Dict[str, torch.Tensor]:
-    """Per-layer losses from the (L, B, N) assignments; each layer's point
-    loss is recomputed in the backward pass."""
+                      compute_labels_loss: bool,
+                      norms: Tuple[torch.Tensor, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Per-layer losses from the (L, B, N) assignments, normalized by
+    `norms` (num_masks, loss_ce's weight sum); each layer's point loss is
+    recomputed in the backward pass."""
+    num_masks, weight_sum = norms
     losses: Dict[str, torch.Tensor] = {}
     for idx, (aux_i, logits, masks) in enumerate(state["layers"]):
         assign = assigns[idx].long()  # (B, N)
         batch = torch.arange(assign.shape[0], device=assign.device)[:, None]
         src = masks[batch, assign]  # (B, N, T, H', W')
         args = (src, state["pool"], state["pool_tgt"], state["bern_wts"],
-                state["row_keep"], state["num_masks"], cfg, state["lattice"])
+                state["row_keep"], num_masks, cfg, state["lattice"])
         if torch.is_grad_enabled():
             loss_mask, loss_dice = checkpoint(_loss_masks, *args, use_reentrant=False,
                                               preserve_rng_state=False)
@@ -366,7 +397,8 @@ def _criterion_losses(state: Dict, assigns: torch.Tensor, cfg: CriterionConfig,
         losses[f"loss_mask{suffix}"] = loss_mask
         losses[f"loss_dice{suffix}"] = loss_dice
         if aux_i is None and compute_labels_loss:
-            losses["loss_ce"] = _loss_labels(logits, assigns[idx], state["tgt_valid"], cfg)
+            losses["loss_ce"] = _loss_labels(logits, assigns[idx], state["tgt_valid"], cfg,
+                                             weight_sum)
     return losses
 
 
@@ -378,13 +410,16 @@ def set_criterion(
     compute_labels_loss: bool = True,
     generator: torch.Generator | None = None,
     draws: Dict | None = None,
+    reduce=None,
 ) -> Dict[str, torch.Tensor]:
     """The criterion over the final and aux outputs. Keys: loss_ce,
-    loss_mask, loss_dice and loss_{mask,dice}_{i} for aux layer i."""
+    loss_mask, loss_dice and loss_{mask,dice}_{i} for aux layer i.
+    `reduce`: a sum over the ranks of a process group (see the module doc)."""
     (st,) = _criterion_costs_multi(outputs, [(tgt_masks, tgt_valid, cfg)], generator, draws)
     assigns = hungarian_assign(st["stacked_cost"], st["stacked_valid"], impl=cfg.assign_impl)
     assigns = assigns.reshape(st["n_layers"], st["b"], -1)
-    return _criterion_losses(st, assigns, cfg, compute_labels_loss)
+    (norms,) = _normalized([(st, assigns, cfg)], reduce)
+    return _criterion_losses(st, assigns, cfg, compute_labels_loss, norms)
 
 
 def set_criterion_pair(
@@ -400,13 +435,15 @@ def set_criterion_pair(
     draws: Dict | None = None,
     outputs_b: Dict[str, torch.Tensor] | None = None,
     draws_b: Dict | None = None,
+    reduce=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Two criteria (supervised + distillation) with ONE batched auction
     for all 2 x layers x batch problems (costs padded with invalid columns
     to a common target count). On the same outputs they share one pool and
     one prediction sampling per layer; with `outputs_b` (the student on the
     disentangled distillation view) the second criterion scores those with
-    its own draws (`draws_b`, else the generator's next)."""
+    its own draws (`draws_b`, else the generator's next). `reduce`: a sum
+    over the ranks of a process group (see the module doc)."""
     if outputs_b is None or outputs_b is outputs:
         st_a, st_b = _criterion_costs_multi(
             outputs, [(tgt_masks_a, tgt_valid_a, cfg_a), (tgt_masks_b, tgt_valid_b, cfg_b)],
@@ -434,7 +471,8 @@ def set_criterion_pair(
     rows_a = cost_a.shape[0]
     assigns_a = assigns[:rows_a, :n_a].reshape(st_a["n_layers"], st_a["b"], -1)
     assigns_b = assigns[rows_a:, :n_b].reshape(st_b["n_layers"], st_b["b"], -1)
+    norms_a, norms_b = _normalized([(st_a, assigns_a, cfg_a), (st_b, assigns_b, cfg_b)], reduce)
     return (
-        _criterion_losses(st_a, assigns_a, cfg_a, compute_labels_loss),
-        _criterion_losses(st_b, assigns_b, cfg_b, compute_labels_loss),
+        _criterion_losses(st_a, assigns_a, cfg_a, compute_labels_loss, norms_a),
+        _criterion_losses(st_b, assigns_b, cfg_b, compute_labels_loss, norms_b),
     )

@@ -22,6 +22,15 @@ One step:
   7. the NaN skip: on a non-finite total the parameters, Adam's moments and
      the teacher all stay as they were (the step count still advances).
 
+In a process group (`parallel/dist.py`, `group=`) each rank runs the step
+on its part of the global batch, as JAX's train step runs over the global
+batch: the criteria's normalizers are the global batch's (all-reduced), so
+each rank's loss is its share of the global loss; the gradients are summed
+over the ranks (one flat bucket) before the optimizer, which then sees the
+global batch's gradient (its global-norm clip included); the logged losses
+and the finite check are the global ones, so every rank applies or skips
+the same update. The EMA update stays local: the students are identical.
+
 With `kernels=True` the MSDA core runs the K1 forward and K2 backward CUDA
 kernels and the auction the K5 kernel on a CUDA device; `kernels=False`
 runs their plain PyTorch versions. Random draws come from the generator
@@ -73,12 +82,21 @@ class TrainState:
         self.step = int(state["step"])
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def state_tensors(state: TrainState):
+    """Every tensor of `state` (the networks' parameters and buffers, the
+    optimizer's moments), by reference: what a broadcast makes equal."""
+    opt = state.optimizer.state_dict()
+    return (list(state.student.state_dict().values()) + list(state.teacher.state_dict().values())
+            + opt["mu"] + opt["nu"] + (opt["acc"] or []))
+
+
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The generator of train step `step`'s random draws (dropout, point
-    sampling), a function of (seed, step) only, as JAX's
-    `fold_in(PRNGKey(seed), step)`: a resumed run draws at each step what an
-    uninterrupted one draws there."""
-    entropy = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    sampling) on rank `rank`, a function of (seed, step, rank) only, as
+    JAX's `fold_in(PRNGKey(seed), step)`: a resumed run draws at each step
+    what an uninterrupted one draws there."""
+    key = [seed, step] if rank == 0 else [seed, step, rank]
+    entropy = np.random.SeedSequence(key).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(
         int(entropy[0]) | (int(entropy[1] & 0x7FFFFFFF) << 32))
 
@@ -193,9 +211,10 @@ class KDTrainStep:
     """The train step of `make_train_step`: `loss_and_grads` computes the
     losses and the gradients, `__call__` also applies them."""
 
-    def __init__(self, cfg: Config, kernels: bool = True):
+    def __init__(self, cfg: Config, kernels: bool = True, group=None):
         mf = cfg.model.mask_former
         self.mf = mf
+        self.group = group
         self.kd_enabled = cfg.model.meta_architecture == "KDVideoMaskFormer"
         if self.kd_enabled and mf.num_predictions_distillation < mf.num_object_queries:
             raise NotImplementedError(
@@ -257,14 +276,15 @@ class KDTrainStep:
                 kd_out = state.student(distill_images, generator=generator)
                 generator.set_state(after)
         with record_function("criterion"):
+            reduce = None if self.group is None else self._sum
             if self.kd_enabled:
                 sup_losses, kd_losses = set_criterion_pair(
                     out, tgt_masks, tgt_valid, self.crit_cfg, kd_masks, kd_valid,
                     self.kd_crit_cfg, generator=generator, draws=draws, outputs_b=kd_out,
-                    draws_b=(draws or {}).get("kd"))
+                    draws_b=(draws or {}).get("kd"), reduce=reduce)
             else:
                 sup_losses = set_criterion(out, tgt_masks, tgt_valid, self.crit_cfg,
-                                           generator=generator, draws=draws)
+                                           generator=generator, draws=draws, reduce=reduce)
             total = weighted_total(sup_losses, self.weights, kd=False, factor=sup_factor)
             metrics = {k: v.detach() for k, v in sup_losses.items() if "_" not in k[5:]}
             if self.kd_enabled:
@@ -279,13 +299,28 @@ class KDTrainStep:
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return total.detach(), metrics, grads
 
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.group.all_reduce_sum([t])[0]
+
+    def reduce(self, metrics: Dict[str, torch.Tensor], grads):
+        """In a process group, (the global metrics, the global batch's
+        gradients): each rank's shares summed over the ranks."""
+        if self.group is None:
+            return metrics, grads
+        keys = list(metrics)
+        with record_function("all_reduce"):
+            summed = self.group.all_reduce_sum([metrics[k].float().reshape(1) for k in keys]
+                                               + list(grads))
+        return {k: v[0] for k, v in zip(keys, summed)}, summed[len(keys):]
+
     def __call__(self, state: TrainState, images: torch.Tensor, tgt_masks: torch.Tensor,
                  tgt_valid: torch.Tensor, generator: torch.Generator | None = None,
                  draws: Dict | None = None, distill_images: torch.Tensor | None = None,
                  distill_affine: torch.Tensor | None = None):
-        total, metrics, grads = self.loss_and_grads(
+        _, metrics, grads = self.loss_and_grads(
             state, images, tgt_masks, tgt_valid, generator, draws, distill_images, distill_affine)
-        finite = bool(torch.isfinite(total))
+        metrics, grads = self.reduce(metrics, grads)
+        finite = bool(torch.isfinite(metrics["total_loss"]))
         with record_function("optimizer"):
             if finite:
                 state.optimizer.step(grads)
@@ -299,13 +334,14 @@ class KDTrainStep:
         return state, metrics
 
 
-def make_train_step(cfg: Config, kernels: bool = True) -> KDTrainStep:
+def make_train_step(cfg: Config, kernels: bool = True, group=None) -> KDTrainStep:
     """step(state, images, tgt_masks, tgt_valid, generator=None, draws=None,
     distill_images=None, distill_affine=None) -> (state, metrics); the state
-    is updated in place.
+    is updated in place. `group`: the process group (`parallel/dist.py`)
+    whose ranks hold the other parts of the global batch.
 
     images (B, T, H, W, 3) normalized and padded; tgt_masks (B, N, T, H, W)
     bool, or (B, N, T, H, W / 8) uint8 bit-packed along W; tgt_valid (B, N)
     bool; the distillation view (B, T, H, W, 3) and its affines (B, T, 3, 3)
     with INPUT.DISENTANGLE_DISTILLATION_LOADER."""
-    return KDTrainStep(cfg, kernels)
+    return KDTrainStep(cfg, kernels, group)

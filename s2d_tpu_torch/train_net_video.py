@@ -1,10 +1,28 @@
 """The video trainer and evaluator CLI of the port, as
-`tools/train_net_video.py` for one process:
+`tools/train_net_video.py`:
 
     python -m s2d_tpu_torch.train_net_video --config-file cfg.yaml \
         [--resume] [--eval-only] [--weights model.pth] [--max-videos N] \
         [--profile-dir DIR] [--profile-steps N] [--device cuda] [--seed S] \
         [KEY VALUE ...]
+
+in one process, or in W processes, one a card, under torchrun:
+
+    python -m torch.distributed.run --nproc-per-node W \
+        -m s2d_tpu_torch.train_net_video --config-file cfg.yaml ...
+
+W processes compute what one process computes on the global batch of
+SOLVER.IMS_PER_BATCH (`parallel/dist.py`, `train/trainer.py`): rank r
+runs on cuda:LOCAL_RANK (NCCL; with --device cpu, gloo), takes
+IMS_PER_BATCH / W clips of the shared permutation a step (a batch that does
+not divide by W raises), and the gradients are summed over the ranks before
+the optimizer. SOLVER.REFERENCE_WORLD_SIZE scales to W as in JAX. Every
+rank builds the seeded or loaded state and rank 0's is broadcast; only rank
+0 writes checkpoints, metrics.json and the tensorboard file, and --resume
+reads the same checkpoint on every rank. An evaluation (--eval-only, or the
+periodic one) runs each rank's shard of the videos into
+results_shard<r>.json; rank 0 merges them into results.json, scores and
+checks them, between two barriers.
 
 Weights are picked as `tools/train_net_video.py` picks them:
 MODEL.WEIGHT_LIST, when all its files exist, merges a student (the first
@@ -41,8 +59,8 @@ mapper=, eval_mapper=)` its own frames.
 A DATASETS.TRAIN name that is a registered COCO set, not a YTVIS one,
 trains as pseudo-clips (`data/image_datasets.py`), as in JAX.
 
-Not ported (ROADMAP queue 1, item 1): --model-parallel > 1, --time-parallel
-and more than one process: they raise NotImplementedError.
+Not ported (ROADMAP queue 1, item 1): --model-parallel > 1 and
+--time-parallel: they raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -143,34 +161,44 @@ def train_datasets(names, clip_len: int):
     return dicts
 
 
-def _check_single_process(args) -> None:
+def _check_unported(args) -> None:
     if args.time_parallel:
         raise NotImplementedError(
-            "--time-parallel (frame-parallel eval) is not ported yet (ROADMAP queue 1, item 1)")
+            "--time-parallel (frame-parallel eval) is not ported yet (ROADMAP queue 1, item 1: "
+            "the frame-parallel eval)")
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 is not ported yet (ROADMAP queue 1, item 1)")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "training or evaluating in more than one process (DDP) is not ported yet "
-            "(ROADMAP queue 1, item 1)")
+            "--model-parallel > 1 is not ported yet (ROADMAP queue 1, item 1: parallel/tp.py)")
 
 
-def evaluate(cfg, args, seed: int) -> int:
+def evaluate_sharded(predictor, dataset_name: str, output_dir: str, group, **kwargs):
+    """`evaluate_dataset` on this rank's shard of the videos; in a process
+    group rank 0 merges the shards and returns the merged metrics, the other
+    ranks None."""
+    from .evaluation.evaluator import evaluate_dataset, merge_and_score
+
+    if group is None:
+        return evaluate_dataset(predictor, dataset_name, output_dir=output_dir, **kwargs)
+    evaluate_dataset(predictor, dataset_name, output_dir=output_dir, num_shards=group.size,
+                     shard_index=group.rank, **kwargs)
+    return merge_and_score(group, dataset_name, output_dir, kwargs.get("max_videos"))
+
+
+def evaluate(cfg, args, seed: int, device, group=None) -> int:
     """--eval-only: every dataset of DATASETS.TEST, checked against
-    TEST.EXPECTED_RESULTS."""
+    TEST.EXPECTED_RESULTS (on rank 0 in a process group)."""
     from .demo_video import VideoPredictor
-    from .evaluation.evaluator import evaluate_dataset
     from .evaluation.verify import verify_results
 
     weights = eval_weights(cfg, args.weights or cfg.model.weights, seed)
-    predictor = VideoPredictor(from_s2d_config(cfg), weights=weights, seed=seed,
-                               device=args.device)
+    predictor = VideoPredictor(from_s2d_config(cfg), weights=weights, seed=seed, device=device)
     if predictor.loaded:
         print(f"weights: {predictor.loaded}")
     for dataset_name in cfg.datasets.test:
-        metrics = evaluate_dataset(predictor, dataset_name, output_dir=cfg.output_dir,
+        metrics = evaluate_sharded(predictor, dataset_name, cfg.output_dir, group,
                                    max_videos=args.max_videos)
+        if metrics is None:
+            continue
         print(f"[{dataset_name}] " + "  ".join(f"{k}: {v:.4f}" for k, v in metrics.items()))
         if cfg.test.expected_results:
             verify_results(cfg.test.expected_results, metrics)
@@ -193,8 +221,9 @@ def _upload(batch, device):
     return [put(key) for key in ("images", "masks", "valid")], view
 
 
-def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
-    """The train loop of `tools/train_net_video.py:223-523` for one process.
+def train(cfg, args, seed: int, mapper=None, eval_mapper=None, device=None, group=None) -> int:
+    """The train loop of `tools/train_net_video.py:223-523`, in this process
+    or as a rank of `group` (see the module doc).
 
     mapper: record -> train sample (default: `data.mapper.ClipMapper` of
     the config, reading the record's frame files); eval_mapper: passed to
@@ -209,7 +238,8 @@ def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
     from .utils.events import MetricLogger
     from .utils.profiling import StepTimer, trace
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if device is None else device
+    world, rank = (1, 0) if group is None else (group.size, group.rank)
     os.makedirs(cfg.output_dir, exist_ok=True)
     dicts = train_datasets(cfg.datasets.train, cfg.input.sampling_frame_num)
     if mapper is None:
@@ -219,11 +249,15 @@ def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
                                        teacher_params=teacher_w)
     ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
     if args.resume:
+        if group is not None:
+            group.barrier("resume")  # every rank sees rank 0's last checkpoint
         step = latest_step(ckpt_dir)
         if step is not None:
             restore_checkpoint(ckpt_dir, state, step)
             print(f"Resumed from checkpoint step {step}")
-    step_fn = trainer.make_train_step(cfg)
+    if group is not None:  # rank 0's weights and moments, bit for bit
+        group.broadcast_(trainer.state_tensors(state))
+    step_fn = trainer.make_train_step(cfg, group=group)
 
     batch_transform = None
     if cfg.dataloader.copy_paste:
@@ -240,22 +274,23 @@ def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
         """Every test dataset with the current student (EVAL_STUDENT) or
         teacher, into OUTPUT_DIR/inference_<step>; metrics as <dataset>/<key>."""
         from .demo_video import VideoPredictor
-        from .evaluation.evaluator import evaluate_dataset
 
         vcfg = from_s2d_config(cfg)
         network = state.student if vcfg.eval_student else state.teacher
         predictor = VideoPredictor(vcfg, weights=network.state_dict(), device=device)
         out = {}
         for dataset_name in cfg.datasets.test:
-            m = evaluate_dataset(predictor, dataset_name,
-                                 output_dir=os.path.join(cfg.output_dir, f"inference_{step}"),
+            m = evaluate_sharded(predictor, dataset_name,
+                                 os.path.join(cfg.output_dir, f"inference_{step}"), group,
                                  max_videos=args.max_videos, mapper=eval_mapper)
+            if m is None:
+                continue
             print(f"[eval @{step}] [{dataset_name}] "
                   + "  ".join(f"{k}: {v:.4f}" for k, v in m.items()))
             out.update({f"{dataset_name}/{k}": v for k, v in m.items()})
         return out
 
-    logger = MetricLogger(cfg.output_dir)
+    logger = MetricLogger(cfg.output_dir if rank == 0 else None)
     start_iter = state.step
     ckpt_period = max(cfg.solver.checkpoint_period, 1)
     eval_period = cfg.test.eval_period
@@ -272,9 +307,10 @@ def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
         pending = None
         logger.log(p_it, {**{k: float(v) for k, v in p_metrics.items()}, **times})
 
-    loader = train_loader(dicts, mapper, cfg.solver.ims_per_batch, cfg.model.pixel_mean,
-                          cfg.model.pixel_std, seed=seed, batch_transform=batch_transform)
-    writer = CheckpointWriter(ckpt_dir)
+    loader = train_loader(dicts, mapper, cfg.solver.ims_per_batch // world, cfg.model.pixel_mean,
+                          cfg.model.pixel_std, seed=seed, num_shards=world, shard_index=rank,
+                          batch_transform=batch_transform)
+    writer = CheckpointWriter(ckpt_dir) if rank == 0 else None
     profiled = contextlib.ExitStack()
     try:
         for it in range(start_iter, cfg.solver.max_iter):
@@ -288,38 +324,55 @@ def train(cfg, args, seed: int, mapper=None, eval_mapper=None) -> int:
             batch = next(loader)
             timer.data_done()
             (images, masks, valid), view = _upload(batch, device)
-            gen = trainer.step_generator(seed + 1, state.step, device)
+            gen = trainer.step_generator(seed + 1, state.step, device, rank)
             state, metrics = step_fn(state, images, masks, valid, generator=gen, **view)
             timer.step_done()
             flush_pending()
             pending = (it, metrics, timer.metrics())
             done = it + 1 == cfg.solver.max_iter
-            if (it + 1) % ckpt_period == 0 or done:
+            if writer is not None and ((it + 1) % ckpt_period == 0 or done):
                 flush_pending()  # metrics.json stays in order before a save
                 writer.save(it + 1, state)
             if eval_period > 0 and ((it + 1) % eval_period == 0 or done):
                 flush_pending()
-                logger.log(it, run_eval(it + 1))
+                metrics = run_eval(it + 1)
+                if metrics:
+                    logger.log(it, metrics)
         flush_pending()
     finally:
         profiled.close()
         loader.close()
         logger.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
+    if group is not None:
+        group.barrier("checkpoints written")  # no rank ends before rank 0's last write
     return 0
 
 
 def main(argv=None, mapper=None, eval_mapper=None) -> int:
+    from .parallel import dist
+
     args = parse_args(argv)
-    _check_single_process(args)
+    _check_unported(args)
     cfg = load_config_tree(args.config_file or None, args.opts)
     seed = args.seed if args.seed is not None else max(cfg.seed, 0)
-    if args.eval_only:
-        return evaluate(cfg, args, seed)
-    from .train.scaling import apply_accum_lr_scale, auto_scale_workers
+    if not args.eval_only:
+        from .train.scaling import apply_accum_lr_scale, auto_scale_workers
 
-    cfg = apply_accum_lr_scale(auto_scale_workers(cfg, 1))
-    return train(cfg, args, seed, mapper=mapper, eval_mapper=eval_mapper)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        cfg = apply_accum_lr_scale(auto_scale_workers(cfg, world))
+        if cfg.solver.ims_per_batch % world:  # as tools/train_net_video.py:215-218
+            raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.solver.ims_per_batch} does not divide "
+                             f"by the {world} processes")
+    group, device = dist.init(args.device)
+    try:
+        if args.eval_only:
+            return evaluate(cfg, args, seed, device, group)
+        return train(cfg, args, seed, mapper=mapper, eval_mapper=eval_mapper, device=device,
+                     group=group)
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -42,6 +42,15 @@ from s2d_tpu_torch.models.meta_arch import build_model
 
 from torch_oracle import TorchVideoMaskFormer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread: the suite's parallel workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HID, QUERIES, HEADS, FF = 64, 10, 4, 128
 DEC, ENC = 9, 6  # the layers JAX's load_reference_model converts

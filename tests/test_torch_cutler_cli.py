@@ -179,7 +179,7 @@ def test_stage1_runs_without_jax_cv2_or_pil(coco_set, tmp_path):
         "    coco.get_coco_dataset('blocked')[0][0], cfg, is_train=True, normalize=False)\n"
         "assert sample['image'].dtype == np.uint8 and sample['valid'].sum() == 2\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -110,7 +110,7 @@ def test_demo_on_jpeg_without_cv2_or_pil_equals_jax(videos, tmp_path, monkeypatc
         f"                            '--confidence-threshold', '0.3', '--save-masks', *{OPTS!r}]) == 0\n"
         "assert not any(m.split('.')[0] in ('cv2', 'PIL', 'jax', 's2d_tpu') for m in sys.modules)\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -41,6 +41,15 @@ from s2d_tpu_torch.demo_video import VideoPredictor
 from s2d_tpu_torch.evaluation import evaluator, ytvos_eval
 from s2d_tpu_torch.ops import masked_attention_cuda, ms_deform_attn_cuda, nms
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread: the suite's parallel workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_OPTS = [
     "MODEL.MASK_FORMER.HIDDEN_DIM", "32",
@@ -447,7 +456,7 @@ def test_eval_path_runs_without_jax_cv2_or_pil(tmp_path):
         "assert 'build/s2d_tpu_torch/librle_ops_' in maps, 'the port RLE library is not loaded'\n"
         "assert 's2d_tpu/native' not in maps\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

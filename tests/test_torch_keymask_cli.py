@@ -227,7 +227,7 @@ def test_runs_without_jax_sklearn_cv2_or_pil(tree, tmp_path):
         "assert not any(m.split('.')[0] in ('jax', 's2d_tpu', 'sklearn', 'cv2', 'PIL')\n"
         "               for m in sys.modules)\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -32,6 +32,15 @@ from s2d_tpu_torch.models.position_encoding import (
 from s2d_tpu_torch.ops import nms
 from s2d_tpu_torch.ops.resize import interpolate_bilinear
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread: the suite's parallel workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INFERENCE_YAML = os.path.join(REPO, "configs", "s2d_inference_kd_video_mask2former_R50_cls_agnostic.yaml")
 
@@ -139,7 +148,7 @@ def test_main_path_imports_no_jax_and_nothing_of_s2d_tpu():
         "assert s2d_tpu_torch._build._LIB is None  # nothing built at import\n"
         "assert not s2d_tpu_torch.native._LOADED  # no native library built at import\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -39,6 +39,15 @@ from s2d_tpu_torch.ops import masked_attention_cuda, ms_deform_attn_cuda, nms
 
 from torch_oracle import TorchVideoMaskFormer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread: the suite's parallel workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 HID, QUERIES, HEADS, FF, DEC, ENC = 64, 10, 4, 128, 4, 2
 T, IN_H, IN_W = 2, 58, 90  # padded to 64 x 96 by preprocess_clip
 OUT_SIZE = (116, 180)

@@ -45,6 +45,15 @@ from s2d_tpu_torch.ops import auction_cuda, ms_deform_attn_cuda
 from s2d_tpu_torch.train.optim import KDOptimizer
 from s2d_tpu_torch.train.trainer import create_train_state, make_train_step
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread: the suite's parallel workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = [
     "MODEL.MASK_FORMER.HIDDEN_DIM", "32", "MODEL.SEM_SEG_HEAD.MASK_DIM", "32",
@@ -476,7 +485,7 @@ def test_train_slice_imports_no_jax(tmp_path):
         " generator=gen)\n"
         "assert float(m['grad_finite']) == 1.0, m\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -273,8 +273,11 @@ def test_an_unknown_train_set_raises(datasets, tmp_path):
 
 
 def test_more_than_one_process_raises(monkeypatch, tmp_path):
+    """In more than one process a global batch (IMS_PER_BATCH 1 here) that
+    does not divide by the processes raises, before any process group is
+    made (the processes themselves: tests/test_torch_ddp_cli.py)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
+    with pytest.raises(ValueError, match="does not divide by the 2 processes"):
         train_net_video.main(["--device", "cpu", *TINY_OPTS, "OUTPUT_DIR", str(tmp_path)])
 
 
@@ -357,7 +360,7 @@ def test_train_path_with_copy_paste_runs_without_jax_cv2_or_pil(datasets, tmp_pa
         "                            eval_mapper=lambda record: {'image': frames}) == 0\n"
         "assert pasted and sum(pasted) > 0, pasted\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env = {**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

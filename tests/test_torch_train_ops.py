@@ -39,6 +39,15 @@ from s2d_tpu_torch.train.optim import label_params
 
 from test_torch_cuda import MSDA_SHAPES, _msda_inputs
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """torch on one thread: the suite's parallel workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
